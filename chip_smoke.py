@@ -22,10 +22,24 @@ Phases:
   (d) the README quickstart: 1000x1000 grid, 1M host-sourced points,
       Average + Max + Min + MostRecent on one pipeline;
   (e) DC-LiDAR scale: 8192x8192 grid (64M cells), 20M staged points,
-      Average.
+      Average;
+  (f) kernels K2 (separable Gaussian), K4 (dense rotated) and K5 (windowed
+      rotated) against their plain PyTorch versions on the card, on the
+      layouts of the glyph suite: 5M uniform points on a 1000x1000 grid,
+      Average, sigma 1 (K2 with the product cutoff), 4 and 16 (K2),
+      rotated 4 x 1.5 (K5) and 8 x 3 (K4); the same touched footprint,
+      bit-identical kernel reruns, a tolerance that grows with the terms
+      per cell (see gauss_rtol), and both times from CUDA events;
+  (g) Gaussian pipelines on the 1000x1000 grid against the numpy oracle
+      (1e-5 per cell, exact NaN footprint): sigma 4 Average 1M staged with
+      state_dir + GeoTIFF + resume, sigma 1 WeightedAverage 1M, rotated
+      4 x 1.5 Average 1M host-sourced, rotated 8 x 3 Count + Sum 250k and
+      sigma 16 Average 250k (the oracle's per-offset loop keeps the wide
+      windows small); then the walls of the sigma 4, 5M staged path.
 Every pipeline runs with gpu_require_strict and must run on a TorchEngine
-on the card, through K1. The line before last is a JSON summary of the
-kernels; the last line is
+on the card, through its kernels: each path is driven with the launch
+counters set to 0 just before it and read just after. The line before last
+is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -150,29 +164,117 @@ def k1_case(torch, kernels, eng, staged, with_f1, label, reps):
               for g, r in zip(got, ref))
 
     scratch = fresh()
-    kern = lambda: kernels.sorted_splat_point(scratch, p, b, **kw)
-    plain = lambda: kernels.sorted_splat_point_plain(scratch, p, b, **kw)
-
-    def time_ms(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    for fn in (plain, kern, plain, kern):       # warm-up
-        fn()
-    t = {"plain": [], "kernel": []}
-    for name, fn in (("plain", plain), ("kernel", kern), ("kernel", kern),
-                     ("plain", plain)):
-        t[name].append(time_ms(fn))
-    ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
+    ms, plain_ms, t = time_turns(
+        torch, lambda: kernels.sorted_splat_point(scratch, p, b, **kw),
+        lambda: kernels.sorted_splat_point_plain(scratch, p, b, **kw),
+        reps=reps, plain_reps=reps)
     print(f"(b) K1 {label}: nsub={p.shape[0]} max_abs_err={err!r} "
           f"kernel_ms={ms!r} plain_ms={plain_ms!r} (turns: {t})")
     return err, ms, plain_ms
+
+
+def time_turns(torch, kern, plain, reps, plain_reps):
+    """Mean CUDA-event ms of kern and plain over the turns plain, kernel,
+    kernel, plain, after one warm-up call of each."""
+    def time_ms(fn, k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / k
+
+    plain()
+    kern()
+    t = {"plain": [], "kernel": []}
+    for name, fn, k in (("plain", plain, plain_reps), ("kernel", kern, reps),
+                        ("kernel", kern, reps), ("plain", plain, plain_reps)):
+        t[name].append(time_ms(fn, k))
+    return float(np.mean(t["kernel"])), float(np.mean(t["plain"])), t
+
+
+def gauss_rtol(n, size, r):
+    """Tolerance of a raw Gaussian state sum, kernel vs plain. Both sum
+    the same K ~ (points per cell) x (2r + 1)^2 positive float32 terms per
+    cell in different orders; the difference of two such sums has a
+    standard deviation of about sqrt(K) * 2^-24 relative, so 8 of those
+    (a 5-sigma maximum over a million cells, with room) is the bar, and
+    never below the repo's 1e-5. At sigma 16 (K ~ 2e4) it is ~9e-5."""
+    k = n / (size * size) * (2 * r + 1) ** 2
+    return max(TOL, 8.0 * np.sqrt(k) * 2.0 ** -24)
+
+
+def gauss_case(torch, pcr, size, n, label, glyph, want_kind, seed):
+    """(f): one Gaussian layout of n uniform points, staged through the
+    port's Pipeline, held kernel against plain."""
+    gc = grid(pcr, size, 3857)
+    spec = pcr.gaussian_splat_spec("value", **glyph)
+    spec.type = pcr.ReductionType.Average
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=[spec], exec_mode=pcr.ExecutionMode.GPU,
+        gpu_require_strict=True))
+    c = cloud(pcr, n, 0.0, float(size), 100.0, seed)
+    (chunk,) = p.stage(c).per_spec[0]
+    check(chunk.kind == want_kind, f"{label}: routed to {chunk.kind}, not "
+                                   f"{want_kind}")
+    eng = p._engine
+    kern, plain, kw = eng.splat_fns(chunk)
+    pr, b = chunk.params, chunk.bids
+    shape = eng._states[0][0].shape
+
+    def fresh():
+        return [torch.zeros(shape, device=eng.device) for _ in range(2)]
+
+    got, ref, again = fresh(), fresh(), fresh()
+    kern(got, pr, b, **kw)
+    plain(ref, pr, b, **kw)
+    kern(again, pr, b, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+              for x, y in zip(got, again)),
+          f"{label}: reruns are not bit-identical")
+    check(torch.equal(got[1] > 0, ref[1] > 0),
+          f"{label}: touched footprints differ")
+    r = int(min(np.ceil(3 * glyph.get("default_sigma_x",
+                                      glyph.get("default_sigma", 1.0))),
+                32))
+    rtol = gauss_rtol(n, size, r)
+    err = max(close(g.cpu().numpy(), w.cpu().numpy(), label, rtol, rtol)
+              for g, w in zip(got, ref))
+    scratch = fresh()
+    ms, plain_ms, turns = time_turns(
+        torch, lambda: kern(scratch, pr, b, **kw),
+        lambda: plain(scratch, pr, b, **kw), reps=3, plain_reps=1)
+    print(f"(f) {label}: {chunk.kind} th={chunk.th} wt={chunk.wt} "
+          f"cut={chunk.cut} nsub={pr.shape[0]} rtol={rtol:.3g} "
+          f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
+          f"(turns: {turns})")
+    return err, ms, plain_ms
+
+
+def gauss_pipeline(pcr, gk, gc, specs, c, label, kinds, staged=False,
+                   state_dir="", output_path=""):
+    """(g): one Gaussian pipeline on the card against the numpy oracle,
+    with the launch counters of `kinds` set to 0 just before it and read
+    just after. Returns (pipeline, bands, walls, launches)."""
+    _, oracle, ow = run_pipeline(pcr, gc, specs, c, pcr.ExecutionMode.CPU)
+    fns = {"gauss": gk.sorted_splat_gauss, "rot": gk.rot_splat_dense,
+           "rotp": gk.rot_splat_packed}
+    for f in fns.values():
+        f.launches = 0
+    p, bands, w = run_pipeline(pcr, gc, specs, c, pcr.ExecutionMode.GPU,
+                               staged=staged, state_dir=state_dir,
+                               output_path=output_path)
+    launches = {k: f.launches for k, f in fns.items()}
+    for k in kinds:
+        check(launches[k] >= 1, f"(g) {label}: {k} was never launched")
+    errs = [close(g, o, f"(g) {label} band {i} vs oracle")
+            for i, (g, o) in enumerate(zip(bands, oracle))]
+    print(f"(g) {label}: {fmt(w)} launches={launches} "
+          f"max_abs_err={max(errs)!r} oracle: {fmt(ow)}")
+    return p, bands, w, launches
 
 
 def k1_layout(pcr, torch, size, n, rtype, seed):
@@ -201,8 +303,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     import pcr_tpu_torch as pcr
-    from pcr_tpu_torch.engine import _build, kernels
+    from pcr_tpu_torch.engine import _build, gauss_kernels, kernels
     RT = pcr.ReductionType
+    # the plain versions' matmuls in full float32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # (a) environment and build
     smi = subprocess.run(
@@ -216,6 +320,7 @@ def main() -> int:
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     kernels._lib()
+    gauss_kernels._lib()
     print(f"(a) kernel library {os.path.relpath(_build.library_path())} "
           f"ready in {time.perf_counter() - t0:.2f}s")
     log = _build.library_path()[:-3] + ".log"
@@ -312,16 +417,99 @@ def main() -> int:
         print(f"(e) DC-LiDAR 8192x8192 20M Average staged: {fmt(w)} "
               f"max_abs_err={err_e!r} peak_device_bytes="
               f"{torch.cuda.max_memory_allocated()} oracle: {fmt(ow)}")
+        del c20
+
+        # (f) K2, K4, K5 against their plain versions
+        s1 = dict(default_sigma=1.0)
+        s4 = dict(default_sigma=4.0)
+        s16 = dict(default_sigma=16.0)
+        rot4 = dict(default_sigma_x=4.0, default_sigma_y=1.5,
+                    default_rotation=0.6)
+        rot8 = dict(default_sigma_x=8.0, default_sigma_y=3.0,
+                    default_rotation=0.6)
+        fres = {}
+        for label, glyph, kind in (
+                ("K2 sigma 1 (cut)", s1, "gauss"),
+                ("K2 sigma 16", s16, "gauss"),
+                ("K5 rotated 4x1.5", rot4, "rotp"),
+                ("K4 rotated 8x3", rot8, "rot"),
+                ("K2 sigma 4", s4, "gauss")):
+            res = gauss_case(torch, pcr, 1000, 5_000_000,
+                             f"1000x1000 5M Average {label}", glyph, kind,
+                             SEED + 4)
+            fres.setdefault(kind, []).append(res)
+        # the glyph suite's headline shapes: sigma 4 (K2), the rotated rows
+        kstat = {k: (max(e for e, _, _ in v), v[-1][1], v[-1][2])
+                 for k, v in fres.items()}
+
+        # (g) Gaussian pipelines against the oracle
+        gc = grid(pcr, 1000, 3857)
+        c1 = cloud(pcr, 1_000_000, 0.0, 1000.0, 100.0, SEED + 5)
+        c250 = cloud(pcr, 250_000, 0.0, 1000.0, 100.0, SEED + 6)
+
+        def gspec(glyph, rtype, name=None):
+            sp = pcr.gaussian_splat_spec("value", output_band_name=name,
+                                         **glyph)
+            sp.type = rtype
+            return sp
+
+        specs = [gspec(s4, RT.Average, "gauss_s4")]
+        state_dir = os.path.join(tmp, "g_state")
+        tif = os.path.join(tmp, "g.tif")
+        p, bands, _, _ = gauss_pipeline(
+            pcr, gauss_kernels, gc, specs, c1, "sigma 4 Average 1M staged",
+            ["gauss"], staged=True, state_dir=state_dir, output_path=tif)
+        check(np.array_equal(pcr.read_geotiff_band(tif, 0), bands[0],
+                             equal_nan=True), "(g) GeoTIFF != band")
+        resumed = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=specs, exec_mode=pcr.ExecutionMode.GPU,
+            gpu_require_strict=True, state_dir=state_dir))
+        check(all(np.array_equal(a, b) for a, b in zip(
+            resumed._engine.fetch_state(0), p._engine.fetch_state(0))),
+            "(g) resume from state_dir does not reproduce the state")
+        del p, resumed
+        gauss_pipeline(pcr, gauss_kernels, gc,
+                       [gspec(s1, RT.WeightedAverage)], c1,
+                       "sigma 1 WeightedAverage 1M", ["gauss"])
+        _, _, _, l_rotp = gauss_pipeline(
+            pcr, gauss_kernels, gc, [gspec(rot4, RT.Average)], c1,
+            "rotated 4x1.5 Average 1M host", ["rotp"])
+        _, _, _, l_rot = gauss_pipeline(
+            pcr, gauss_kernels, gc,
+            [gspec(rot8, RT.Count), gspec(rot8, RT.Sum)], c250,
+            "rotated 8x3 Count+Sum 250k", ["rot"])
+        gauss_pipeline(pcr, gauss_kernels, gc, [gspec(s16, RT.Average)],
+                       c250, "sigma 16 Average 250k", ["gauss"])
+        del c1, c250
+
+        # the slice's main path at the glyph suite's size: sigma 4, 5M
+        c5 = cloud(pcr, 5_000_000, 0.0, 1000.0, 100.0, SEED + 7)
+        gauss_kernels.sorted_splat_gauss.launches = 0
+        _, bands, w = run_pipeline(pcr, gc, [gspec(s4, RT.Average)], c5,
+                                   pcr.ExecutionMode.GPU, staged=True)
+        l_gauss = gauss_kernels.sorted_splat_gauss.launches
+        check(l_gauss >= 1, "(g) the sigma 4 5M path never launched K2")
+        check(np.isfinite(bands[0]).all(), "(g) sigma 4 5M: empty cells "
+                                           "on a fully covered grid")
+        print(f"(g) sigma 4 Average 5M staged: {fmt(w)} K2 launches="
+              f"{l_gauss}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    pk = "pcr_tpu/engine/pallas_kernels.py"
+    rows = [("sorted_splat_point", "sorted_splat_point.cu", f"{pk}:321",
+             launches, max(errs), main_ms, main_plain_ms),
+            ("sorted_splat_gauss", "sorted_splat_gauss.cu", f"{pk}:560",
+             l_gauss, *kstat["gauss"]),
+            ("rot_splat_dense", "rot_splat.cu", f"{pk}:414",
+             l_rot["rot"], *kstat["rot"]),
+            ("rot_splat_packed", "rot_splat.cu", f"{pk}:111",
+             l_rotp["rotp"], *kstat["rotp"])]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
-        "name": "sorted_splat_point", "route": "cuda",
-        "source": "pcr_tpu_torch/csrc/sorted_splat_point.cu",
-        "replaces": "pcr_tpu/engine/pallas_kernels.py:321",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": main_ms, "plain_ms": main_plain_ms}]}))
+        "name": name, "route": "cuda", "source": f"pcr_tpu_torch/csrc/{src}",
+        "replaces": rep, "launches": n, "max_abs_err": err, "ms": ms,
+        "plain_ms": pms} for name, src, rep, n, err, ms, pms in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

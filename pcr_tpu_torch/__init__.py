@@ -9,14 +9,15 @@ core types, the reduction registry, routing, filters, glyph specs, the
 numpy CPU oracle, I/O and the native C++ helpers — are pcr_tpu's own,
 imported rather than copied; none of them imports jax.
 
-Ported so far: the Point glyph on the device path (ExecutionMode.GPU /
-Auto / Hybrid), host-sourced and staged ingest, finalize with PCRT
-checkpoints and GeoTIFF output, and resume. Sum / Count / Average /
-WeightedAverage run kernel K1 (engine/kernels.py); Max / Min / MostRecent /
-PriorityMerge run torch scatters; Median / Percentile stay host-side.
-Gaussian and Line glyphs, Custom reductions, out-of-core banding and
-meshes are refused on the device path (NotImplemented) and run on the
-CPU backend.
+Ported so far: the Point and Gaussian glyphs on the device path
+(ExecutionMode.GPU / Auto / Hybrid), host-sourced and staged ingest,
+finalize with PCRT checkpoints and GeoTIFF output, and resume. Point Sum /
+Count / Average / WeightedAverage run kernel K1 (engine/kernels.py); Max /
+Min / MostRecent / PriorityMerge run torch scatters; Median / Percentile
+stay host-side. Gaussian splats run kernels K2 (separable), K4 (dense
+rotated) and K5 (windowed rotated) (engine/gauss_kernels.py). Line
+glyphs, Custom reductions, out-of-core banding and meshes are refused on
+the device path (NotImplemented) and run on the CPU backend.
 """
 
 from pcr_tpu import __version__  # noqa: F401

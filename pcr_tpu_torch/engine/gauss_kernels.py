@@ -1,0 +1,380 @@
+"""
+Kernels K2, K4 and K5 — the Gaussian splats: their wrappers, their plain
+PyTorch versions and their launch counters.
+
+  * K2 `sorted_splat_gauss` replaces the gauss mode of
+    `pcr_tpu/engine/pallas_kernels.py::build_sorted_splat_pallas`
+    (two_d=True, corr_offsets); source `csrc/sorted_splat_gauss.cu`.
+    params (nsub, 8, BLOCK) int32 [icx | icy | sub_cx | sub_cy | sx | sy |
+    r | f0]. `cut` turns on the reference's product cutoff (drop a
+    cell-entry pair whose wy * wx < 1e-6), which the TPU expressed with its
+    corr rows; the caller sets it where the TPU had corr offsets.
+  * K4 `rot_splat_dense` replaces the rot mode of the same function
+    (two_d=True); source `csrc/rot_splat.cu`. params (nsub, 9, BLOCK)
+    float32 [xoff | yoff | s | sC | sA2 | f0 | icx | icy | r], masks
+    computed in the kernel.
+  * K5 `rot_splat_packed` replaces `build_rot_packed_pallas`; same source.
+    params (nsub, 10, BLOCK) float32 [xoff | yoff | s | sC | sA2 | f0 |
+    wlo | whi | rlo | rhi], windows clipped on the host, in the port's own
+    sub-chunk-major tile layout (not the TPU's quad-major one).
+
+All three take ascending `bids` (tile id = row_block * ncb + col_block over
+(th, wt) tiles of the (H_pad, W_pad) state fields), skip runs with bids
+outside [0, nb_total), and update the states IN PLACE. The sources' header
+comments have each design and what bounds it on the card. A wrapper takes
+the plain version only for tensors on the CPU; for CUDA tensors it launches
+its kernel or raises.
+
+`geom` (a GaussGeom) carries the grid the masks need: the logical (H, W),
+the home-tile clip of multi-tile grids, and a row-offset view's frame.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from . import _build
+from .kernels import BLOCK
+
+__all__ = ["GaussGeom", "ROT_CUT", "rot_splat_dense", "rot_splat_dense_plain",
+           "rot_splat_packed", "rot_splat_packed_plain", "sorted_splat_gauss",
+           "sorted_splat_gauss_plain"]
+
+ROT_CUT = -19.931569        # -ln(1e6) * log2(e): the 1e-6 product cutoff
+WMIN = 1e-6                 # the reference's weight cutoff
+# elements of the widest intermediate a plain version builds at once
+_PLAIN_BUDGET = {"cpu": 1 << 22, "cuda": 1 << 26}
+
+
+@dataclass(frozen=True)
+class GaussGeom:
+    """What the in-kernel masks read of the grid (GridConfig, or a
+    row-offset view with row_offset / global_height)."""
+    H: int
+    W: int
+    multi_tile: bool = False
+    tile_w: int = 1
+    tile_h: int = 1
+    row_offset: int = 0
+    global_h: int = 0
+
+    @classmethod
+    def of(cls, cfg) -> "GaussGeom":
+        return cls(cfg.height, cfg.width, cfg.total_tiles() > 1,
+                   cfg.tile_width, cfg.tile_height,
+                   getattr(cfg, "row_offset", 0),
+                   getattr(cfg, "global_height", cfg.height))
+
+    def args(self):
+        return [self.H, self.W, int(self.multi_tile), self.tile_w,
+                self.tile_h, self.row_offset, self.global_h or self.H]
+
+
+_BOUND = None
+
+
+def _lib():
+    global _BOUND
+    if _BOUND is None:
+        lib = _build.load()
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.pcr_sorted_splat_gauss.argtypes = (
+            [vp, vp, i64, vp, vp] + [i32] * 14 + [vp])
+        lib.pcr_rot_splat_dense.argtypes = (
+            [vp, vp, i64, vp, vp] + [i32] * 13 + [vp])
+        lib.pcr_rot_splat_packed.argtypes = (
+            [vp, vp, i64, vp, vp] + [i32] * 6 + [vp])
+        for fn in (lib.pcr_sorted_splat_gauss, lib.pcr_rot_splat_dense,
+                   lib.pcr_rot_splat_packed, lib.pcr_sorted_splat_gauss_block,
+                   lib.pcr_rot_splat_block):
+            fn.restype = i32
+        lib.pcr_sorted_splat_gauss_block.argtypes = []
+        lib.pcr_rot_splat_block.argtypes = []
+        if (lib.pcr_sorted_splat_gauss_block() != BLOCK
+                or lib.pcr_rot_splat_block() != BLOCK):
+            raise RuntimeError("gauss_kernels: kernel block size differs "
+                               "from kernels.BLOCK")
+        _BOUND = lib
+    return _BOUND
+
+
+def _check(name, states, params, bids, th, wt, nseg, dtype):
+    if len(states) not in (1, 2):
+        raise ValueError(f"{name}: 1 or 2 state fields expected")
+    dev, shape = states[0].device, states[0].shape
+    for s in states:
+        if (s.dtype != torch.float32 or s.device != dev or s.shape != shape
+                or s.dim() != 2 or not s.is_contiguous()):
+            raise ValueError(f"{name}: states must be contiguous float32 "
+                             f"(H_pad, W_pad) fields on one device")
+    if shape[0] % th or shape[1] % wt:
+        raise ValueError(f"{name}: state {tuple(shape)} is not a whole "
+                         f"number of ({th}, {wt}) tiles")
+    if (params.dtype != dtype or params.dim() != 3
+            or params.shape[1] != nseg or not params.is_contiguous()
+            or params.device != dev):
+        raise ValueError(f"{name}: params must be contiguous {dtype} "
+                         f"(nsub, {nseg}, block) on the states' device")
+    if (bids.dtype != torch.int32 or bids.shape != (params.shape[0],)
+            or not bids.is_contiguous() or bids.device != dev):
+        raise ValueError(f"{name}: bids must be contiguous int32 (nsub,) "
+                         f"on the states' device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {dev.type} tensors")
+    if dev.type == "cuda" and params.shape[2] != BLOCK:
+        raise ValueError(f"{name}: the kernel takes {BLOCK}-entry "
+                         f"sub-chunks, got {params.shape[2]}")
+    return dev
+
+
+def _launch(name, fn, states, params, bids, args):
+    dev = states[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(params.data_ptr(), bids.data_ptr(), params.shape[0],
+                 states[0].data_ptr(),
+                 states[1].data_ptr() if len(states) == 2 else None,
+                 len(states), *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed (cudaError {err})")
+
+
+def _tiles(states, wt, th):
+    h_pad, w_pad = states[0].shape
+    ncb = w_pad // wt
+    return h_pad, w_pad, ncb, h_pad // th * ncb
+
+
+# -- K2 ---------------------------------------------------------------------
+
+def sorted_splat_gauss(states, params: torch.Tensor, bids: torch.Tensor, *,
+                       th: int, wt: int, cut: bool, geom: GaussGeom) -> None:
+    """K2: fold every live entry's separable footprint into `states`, in
+    place (1 field: Sum / Count; 2: Average / WeightedAverage)."""
+    dev = _check("sorted_splat_gauss", states, params, bids, th, wt, 8,
+                 torch.int32)
+    if dev.type == "cpu":
+        sorted_splat_gauss_plain(states, params, bids, th=th, wt=wt, cut=cut,
+                                 geom=geom)
+        return
+    if th % 32 or wt % 128:
+        raise ValueError("sorted_splat_gauss: the kernel takes th % 32 == 0 "
+                         "and wt % 128 == 0")
+    _, w_pad, ncb, nb_total = _tiles(states, wt, th)
+    _launch("sorted_splat_gauss", _lib().pcr_sorted_splat_gauss, states,
+            params, bids, [int(cut), th, wt, ncb, nb_total, w_pad]
+            + geom.args())
+    sorted_splat_gauss.launches += 1
+
+
+sorted_splat_gauss.launches = 0
+
+
+def _entries(states, params, bids, th, wt, alive):
+    """The entries of the live runs, flat in run and entry order: their
+    params (E, nseg) and their tile's first row and column (E,), less the
+    dead entries (`alive` of the params is False)."""
+    _, w_pad, ncb, nb_total = _tiles(states, wt, th)
+    runs = (bids >= 0) & (bids < nb_total)
+    p = params[runs].transpose(1, 2).reshape(-1, params.shape[1])
+    b = bids[runs].long().repeat_interleave(params.shape[2])
+    keep = alive(p)
+    b = b[keep]
+    return p[keep], b // ncb * th, b % ncb * wt
+
+
+def _splat_windows(states, p, row0, col0, th, wt, y0, x0, ny, nx, weigh):
+    """Add each entry's weights over its window of ny x nx cells from
+    (y0, x0), cut to its tile, with `index_add_` into the flattened
+    fields, in place. `weigh(p, h, w, row_in, col_in)` gives the cells'
+    mask and the two fields' terms, each (E, ny, nx), for rows h (E, ny)
+    and columns w (E, nx)."""
+    w_pad = states[0].shape[1]
+    dev = p.device
+    step = max(1, _PLAIN_BUDGET[dev.type] // (ny * nx))
+    for a in range(0, len(p), step):
+        sl = slice(a, a + step)
+        h = y0[sl, None] + torch.arange(ny, device=dev)
+        w = x0[sl, None] + torch.arange(nx, device=dev)
+        row_in = (h >= row0[sl, None]) & (h < row0[sl, None] + th)
+        col_in = (w >= col0[sl, None]) & (w < col0[sl, None] + wt)
+        mask, c0, c1 = weigh(p[sl], h, w, row_in, col_in)
+        cells = (h[:, :, None] * w_pad + w[:, None, :])[mask]
+        for st, c in zip(states, (c0, c1)):
+            st.view(-1).index_add_(0, cells, c[mask])
+
+
+def _axis_factor(x, ic, sub, s):
+    """The TPU kernel's axis factor exp(-0.5 q^2), q = ((x - ic) - sub) / s,
+    for coordinates x (E, k) of entries (E,)."""
+    q = (x.float() - ic[:, None].float()) - sub[:, None]
+    q = q / s[:, None]
+    return torch.exp(-0.5 * q * q)
+
+
+def sorted_splat_gauss_plain(states, params: torch.Tensor,
+                             bids: torch.Tensor, *, th: int, wt: int,
+                             cut: bool, geom: GaussGeom) -> None:
+    """K2's plain PyTorch version: every live entry's factors over its
+    +-r window, cut to its tile and masked as the kernel masks them, added
+    term by term with `index_add_`, in place."""
+    p, row0, col0 = _entries(states, params, bids, th, wt,
+                             lambda p: p[:, 6] >= 0)
+    if not len(p):
+        return
+    g = geom
+    r = p[:, 6].long()
+    span = 2 * int(r.max()) + 1
+
+    def weigh(p, h, w, row_in, col_in):
+        f = p.view(torch.float32)
+        icx, icy, r = p[:, 0].long(), p[:, 1].long(), p[:, 6].long()
+        wy = _axis_factor(h, icy, f[:, 3], f[:, 5])
+        wx = _axis_factor(w, icx, f[:, 2], f[:, 4])
+        my = (row_in & ((h - icy[:, None]).abs() <= r[:, None])
+              & (wy >= WMIN) & (h < g.H))
+        mx = (col_in & ((w - icx[:, None]).abs() <= r[:, None])
+              & (wx >= WMIN) & (w < g.W))
+        if g.multi_tile:
+            rs = ((icy + g.row_offset).clamp(0, g.global_h - 1)
+                  // g.tile_h * g.tile_h - g.row_offset)
+            re = ((rs + g.row_offset + g.tile_h).clamp(max=g.global_h)
+                  - g.row_offset)
+            my &= (h >= rs[:, None]) & (h < re[:, None])
+            cs = icx.clamp(0, g.W - 1) // g.tile_w * g.tile_w
+            ce = (cs + g.tile_w).clamp(max=g.W)
+            mx &= (w >= cs[:, None]) & (w < ce[:, None])
+        prod = wy[:, :, None] * wx[:, None, :]
+        mask = my[:, :, None] & mx[:, None, :]
+        if cut:
+            mask &= prod >= WMIN
+        c0 = wy[:, :, None] * (wx * f[:, 7, None])[:, None, :]
+        return mask, c0, prod
+
+    _splat_windows(states, p, row0, col0, th, wt, p[:, 1].long() - r,
+                   p[:, 0].long() - r, span, span, weigh)
+
+
+# -- K4 and K5 --------------------------------------------------------------
+
+def rot_splat_dense(states, params: torch.Tensor, bids: torch.Tensor, *,
+                    th: int, wt: int, geom: GaussGeom) -> None:
+    """K4: fold every live entry's rotated footprint, evaluated over its
+    whole tile, into `states`, in place."""
+    dev = _check("rot_splat_dense", states, params, bids, th, wt, 9,
+                 torch.float32)
+    if dev.type == "cpu":
+        rot_splat_dense_plain(states, params, bids, th=th, wt=wt, geom=geom)
+        return
+    if th % 32 or wt % 128:
+        raise ValueError("rot_splat_dense: the kernel takes th % 32 == 0 "
+                         "and wt % 128 == 0")
+    _, w_pad, ncb, nb_total = _tiles(states, wt, th)
+    _launch("rot_splat_dense", _lib().pcr_rot_splat_dense, states, params,
+            bids, [th, wt, ncb, nb_total, w_pad] + geom.args())
+    rot_splat_dense.launches += 1
+
+
+rot_splat_dense.launches = 0
+
+
+def rot_splat_packed(states, params: torch.Tensor, bids: torch.Tensor, *,
+                     th: int, wt: int) -> None:
+    """K5: fold every live entry's rotated footprint, inside its
+    host-clipped window, into `states`, in place."""
+    dev = _check("rot_splat_packed", states, params, bids, th, wt, 10,
+                 torch.float32)
+    if dev.type == "cpu":
+        rot_splat_packed_plain(states, params, bids, th=th, wt=wt)
+        return
+    if th % 16 or wt % 128:
+        raise ValueError("rot_splat_packed: the kernel takes th % 16 == 0 "
+                         "and wt % 128 == 0")
+    _, w_pad, ncb, nb_total = _tiles(states, wt, th)
+    _launch("rot_splat_packed", _lib().pcr_rot_splat_packed, states, params,
+            bids, [th, wt, ncb, nb_total, w_pad])
+    rot_splat_packed.launches += 1
+
+
+rot_splat_packed.launches = 0
+
+
+def _rot_weigh(col_ok, row_ok):
+    """The completed-square weights in the kernels' formulas
+    (csrc/rot_splat.cu), given each entry's column mask (E, nx) and row
+    mask (E, ny)."""
+    def weigh(f, h, w, row_in, col_in):
+        hs, ws = h.float(), w.float()
+        dx = ws + f[:, 0, None]
+        u = dx * f[:, 4, None]
+        gq = -(u * u)
+        dy = hs + f[:, 1, None]
+        v = (dy[:, :, None] + (dx * f[:, 2, None])[:, None, :]) \
+            * f[:, 3, None, None]
+        q2n = gq[:, None, :] - v * v
+        mask = ((row_in & row_ok(f, hs))[:, :, None]
+                & (col_in & col_ok(f, ws))[:, None, :] & (q2n >= ROT_CUT))
+        wgt = torch.exp2(q2n)
+        return mask, f[:, 5, None, None] * wgt, wgt
+    return weigh
+
+
+def rot_splat_dense_plain(states, params: torch.Tensor, bids: torch.Tensor,
+                          *, th: int, wt: int, geom: GaussGeom) -> None:
+    """K4's plain PyTorch version: every live entry over its +-r window,
+    cut to its tile, with the masks the TPU kernel computes from icx / icy
+    / r and the home tile, added term by term with `index_add_`, in
+    place."""
+    f, row0, col0 = _entries(states, params, bids, th, wt,
+                             lambda f: f[:, 8] >= 0)
+    if not len(f):
+        return
+    g = geom
+    r = f[:, 8].long()
+    span = 2 * int(r.max()) + 1
+
+    def col_ok(f, ws):
+        icx = f[:, 6, None]
+        ok = ((ws - icx).abs() <= f[:, 8, None]) & (ws < g.W)
+        if g.multi_tile:
+            cs = torch.floor(icx.clamp(0.0, g.W - 1.0) / g.tile_w) * g.tile_w
+            ok &= (ws >= cs) & (ws < (cs + g.tile_w).clamp(max=float(g.W)))
+        return ok
+
+    def row_ok(f, hs):
+        icy, r = f[:, 7, None], f[:, 8, None]
+        rlo, rhi = icy - r, icy + r
+        if g.multi_tile:
+            off, hg1 = float(g.row_offset), float(g.global_h - 1)
+            rs = torch.floor((icy + off).clamp(0.0, hg1) / g.tile_h) * g.tile_h
+            rlo = torch.maximum(rlo, rs - off)
+            rhi = torch.minimum(rhi, (rs + g.tile_h - 1.0).clamp(max=hg1)
+                                - off)
+        else:
+            rhi = rhi.clamp(max=float(g.H - 1))
+        return (hs >= rlo) & (hs <= rhi)
+
+    _splat_windows(states, f, row0, col0, th, wt, f[:, 7].long() - r,
+                   f[:, 6].long() - r, span, span, _rot_weigh(col_ok, row_ok))
+
+
+def rot_splat_packed_plain(states, params: torch.Tensor, bids: torch.Tensor,
+                           *, th: int, wt: int) -> None:
+    """K5's plain PyTorch version: every live entry over its host-clipped
+    window, cut to its tile, added term by term with `index_add_`, in
+    place."""
+    f, row0, col0 = _entries(states, params, bids, th, wt,
+                             lambda f: f[:, 6] <= f[:, 7])
+    if not len(f):
+        return
+    ny = int((f[:, 9] - f[:, 8]).max()) + 1
+    nx = int((f[:, 7] - f[:, 6]).max()) + 1
+    weigh = _rot_weigh(
+        lambda f, ws: (ws >= f[:, 6, None]) & (ws <= f[:, 7, None]),
+        lambda f, hs: (hs >= f[:, 8, None]) & (hs <= f[:, 9, None]))
+    _splat_windows(states, f, row0, col0, th, wt, f[:, 8].long(),
+                   f[:, 6].long(), ny, nx, weigh)
+

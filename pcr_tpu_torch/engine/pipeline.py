@@ -12,9 +12,10 @@ The base class tags its device backend "jax" and keys every shared device
 branch on that tag (stage, ingest, finalize, resume); here the same tag
 drives the TorchEngine, and no jax code is reached.
 
-Not yet ported, refused with StatusCode.NotImplemented on the device path:
-Gaussian and Line glyphs, Custom reductions, `gpu_memory_budget`
-out-of-core banding and device meshes. The CPU backend runs them all.
+Point and Gaussian glyphs run on the device path. Not yet ported, refused
+with StatusCode.NotImplemented there: Line glyphs, Custom reductions,
+`gpu_memory_budget` out-of-core banding and device meshes. The CPU backend
+runs them all.
 """
 
 from __future__ import annotations
@@ -124,10 +125,8 @@ class Pipeline(_ref.Pipeline):
         if cfg.gpu_memory_budget:
             raise _not_ported("gpu_memory_budget out-of-core banding")
         for spec, _ in self._plans:
-            if GlyphType(spec.glyph.type) != GlyphType.Point:
-                raise _not_ported(
-                    f"{GlyphType(spec.glyph.type).name} glyphs on the "
-                    f"device path")
+            if GlyphType(spec.glyph.type) == GlyphType.Line:
+                raise _not_ported("Line glyphs on the device path")
         device = _device_override() or torch.device(
             "cuda", min(cfg.cuda_device_id, cuda_device_count() - 1))
         self._engine = TorchEngine(cfg.grid, self._plans, device)

@@ -13,9 +13,29 @@ from __future__ import annotations
 import torch
 
 from pcr_tpu.core.types import PcrError, ReductionType, Status, StatusCode
+from pcr_tpu.engine.glyph import GlyphType
+from pcr_tpu.engine.tpu_backend import GAUSS_WMIN
 from pcr_tpu.ops.reduction import FLT_MAX, ReductionInfo
 
-__all__ = ["finalize_fields"]
+__all__ = ["finalize_fields", "gauss_state_flush"]
+
+
+def gauss_state_flush(spec, info: ReductionInfo, fields):
+    """Zero sub-cutoff Gaussian weight sums, and their value sums, so the
+    empty-cell NaN footprint is exact (tpu_backend.gauss_state_flush,
+    :314-341). Every legitimate Gaussian deposit weighs >= 1e-6, so a
+    weight sum under GAUSS_WMIN is a residue, never data. Point and Line
+    specs and Sum states pass through. Returns new tensors; the inputs
+    are not changed."""
+    if GlyphType(spec.glyph.type) != GlyphType.Gaussian:
+        return fields
+    rtype = ReductionType(info.type)
+    if rtype in (ReductionType.Average, ReductionType.WeightedAverage):
+        keep = fields[1] >= float(GAUSS_WMIN)
+        return [torch.where(keep, f, 0.0) for f in fields]
+    if rtype == ReductionType.Count:
+        return [torch.where(fields[0] >= float(GAUSS_WMIN), fields[0], 0.0)]
+    return fields
 
 
 def finalize_fields(info: ReductionInfo, fields) -> torch.Tensor:

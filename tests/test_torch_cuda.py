@@ -1,4 +1,5 @@
-"""Kernel K1 and the Point slice of the PyTorch port on a CUDA card.
+"""Kernels K1, K2, K4, K5 and the Point and Gaussian slices of the PyTorch
+port on a CUDA card.
 
 These tests need the card (marker `cuda`) and skip without one. That
 machine has no jax, and tests/conftest.py imports it, so run them there
@@ -9,7 +10,8 @@ without the conftest (this file needs nothing from it):
 
 K1 is held against its plain PyTorch version at atol = rtol = 1e-5 (the
 two add the same float32 values in different orders), its reruns must be
-bit-identical, and the pipeline against the numpy CPU oracle.
+bit-identical, and the pipeline against the numpy CPU oracle. K2, K4 and K5
+likewise, at a tolerance that grows with the terms per cell (gauss_rtol).
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 import pcr_tpu_torch as pcr
+from pcr_tpu_torch.engine import gauss_kernels as gk
 from pcr_tpu_torch.engine import kernels
 from pcr_tpu_torch.engine.torch_backend import TorchEngine
 
@@ -137,3 +140,101 @@ def test_pipeline_on_the_card_matches_oracle(card, staged, monkeypatch):
     assert np.array_equal(np.isnan(g[0]), np.isnan(o[0]))
     for i in (1, 2):
         assert np.array_equal(g[i], o[i], equal_nan=True)
+
+
+GLYPHS = {
+    "s1": (dict(default_sigma=1.0), "gauss", 3),
+    "s4": (dict(default_sigma=4.0), "gauss", 12),
+    "rot4": (dict(default_sigma_x=4.0, default_sigma_y=1.5,
+                  default_rotation=0.6), "rotp", 12),
+    "rot8": (dict(default_sigma_x=8.0, default_sigma_y=3.0,
+                  default_rotation=0.6), "rot", 24),
+}
+
+
+def gauss_rtol(n, cells, r):
+    """Both sum ~K = (points per cell) * (2r + 1)^2 positive float32 terms
+    per cell in different orders: 8 standard deviations of the difference
+    (sqrt(K) * 2^-24 relative), never below 1e-5."""
+    k = n / cells * (2 * r + 1) ** 2
+    return max(TOL, 8.0 * np.sqrt(k) * 2.0 ** -24)
+
+
+def gauss_chunk(card, glyph, n, adversarial, seed=0):
+    """A Gaussian chunk of n points on 300 x 200, staged through the
+    Pipeline; adversarial values span 1e-3..1e3 with both signs."""
+    gc = make_grid_config(w=300.0, h=200.0)
+    spec = pcr.gaussian_splat_spec("v", **GLYPHS[glyph][0])
+    spec.type = RT.Average
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=[spec], exec_mode=pcr.ExecutionMode.GPU,
+        gpu_require_strict=True))
+    c = make_cloud(n, seed, 300.0, 200.0)
+    rng = np.random.default_rng(seed + 1)
+    vals = (rng.normal(0, 1, n) * 10.0 ** rng.integers(-3, 4, n)
+            if adversarial else rng.uniform(0, 100, n))
+    c.set_channel_array_f32("v", vals.astype(np.float32))
+    (chunk,) = p.stage(c).per_spec[0]
+    assert chunk.kind == GLYPHS[glyph][1] and chunk.params.is_cuda
+    return p._engine, chunk
+
+
+@pytest.mark.parametrize("adversarial", [False, True],
+                         ids=["parity", "reruns"])
+@pytest.mark.parametrize("glyph", list(GLYPHS))
+def test_gauss_kernels_match_plain_and_rerun_bit_identical(card, glyph,
+                                                          adversarial):
+    """200k points on 60k cells: hundreds to thousands of terms per cell.
+    On adversarial values only the reruns are compared."""
+    n = 200_000
+    eng, chunk = gauss_chunk(card, glyph, n, adversarial)
+    kern, plain, kw = eng.splat_fns(chunk)
+    rng = np.random.default_rng(1)
+    init = [torch.from_numpy(rng.uniform(0, 1, s.shape).astype(np.float32))
+            .to(card) for s in eng._states[0]]
+    got, again, want = ([s.clone() for s in init] for _ in range(3))
+    before = kern.launches
+    kern(got, chunk.params, chunk.bids, **kw)
+    kern(again, chunk.params, chunk.bids, **kw)
+    assert kern.launches == before + 2
+    plain(want, chunk.params, chunk.bids, **kw)
+    torch.cuda.synchronize()
+    rtol = gauss_rtol(n, 300 * 200, GLYPHS[glyph][2])
+    for g, a, r in zip(got, again, want):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        if not adversarial:
+            torch.testing.assert_close(g, r, atol=rtol, rtol=rtol)
+
+
+@pytest.mark.parametrize("glyph", list(GLYPHS))
+def test_gauss_pipeline_on_the_card_matches_oracle(card, glyph, monkeypatch):
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    gc = make_grid_config(w=300.0, h=200.0, tile=128)
+    c = make_cloud(50_000, seed=4, w=300.0, h=200.0)
+    # positive values: the oracle evaluates the rotated form in another
+    # algebra (each term ~1e-5 apart), which a sign-mixed sum that cancels
+    # to near 0 would turn into a larger relative difference
+    c.set_channel_array_f32("v", np.random.default_rng(5).uniform(
+        0, 100, 50_000).astype(np.float32))
+    specs = []
+    for rtype in (RT.Average, RT.Count, RT.Sum):
+        sp = pcr.gaussian_splat_spec("v", **GLYPHS[glyph][0])
+        sp.type = rtype
+        specs.append(sp)
+    kern = {"gauss": gk.sorted_splat_gauss, "rot": gk.rot_splat_dense,
+            "rotp": gk.rot_splat_packed}[GLYPHS[glyph][1]]
+    bands = {}
+    for mode in (pcr.ExecutionMode.GPU, pcr.ExecutionMode.CPU):
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=specs, exec_mode=mode,
+            gpu_require_strict=True))
+        kern.launches = 0
+        p.ingest(p.stage(c) if p._engine is not None else c)
+        p.finalize()
+        if mode == pcr.ExecutionMode.GPU:
+            assert p._engine.device.type == "cuda" and kern.launches >= 3
+        bands[mode] = [p.result().band_array(i) for i in range(3)]
+    for g, o in zip(bands[pcr.ExecutionMode.GPU],
+                    bands[pcr.ExecutionMode.CPU]):
+        assert np.array_equal(np.isnan(g), np.isnan(o))
+        np.testing.assert_allclose(g, o, atol=TOL, rtol=TOL)

@@ -229,13 +229,11 @@ def _register_rms():
         finalize_arrays=lambda f: (f[0] / f[1]) ** 0.5)
 
 
-@pytest.mark.parametrize("case", ["gaussian", "line", "custom",
-                                  "gpu_memory_budget", "mesh"])
+@pytest.mark.parametrize("case", ["line", "custom", "gpu_memory_budget",
+                                  "mesh"])
 def test_unported_features_refuse_on_the_device(case):
     specs, cfg = [spec(RT.Average)], {}
-    if case == "gaussian":
-        specs = [ref.gaussian_splat_spec("v", default_sigma=1.5)]
-    elif case == "line":
+    if case == "line":
         specs = [ref.line_splat_spec("v")]
     elif case == "custom":
         _register_rms()
