@@ -35,7 +35,24 @@ Phases:
       state_dir + GeoTIFF + resume, sigma 1 WeightedAverage 1M, rotated
       4 x 1.5 Average 1M host-sourced, rotated 8 x 3 Count + Sum 250k and
       sigma 16 Average 250k (the oracle's per-offset loop keeps the wide
-      windows small); then the walls of the sigma 4, 5M staged path.
+      windows small); then the walls of the sigma 4, 5M staged path;
+  (h) kernel K3 (the rect splat of Line runs) against its plain PyTorch
+      version on the card, on the Line layouts of the glyph suite: a
+      1000x1000 grid, half length 1, 4 and 16 at direction 0 with 5M points
+      and half length 16 at direction 0.7 (multi-run staircases) with 1M,
+      each with two fields (WeightedAverage) and one (Sum); the same
+      touched footprint, bit-identical kernel reruns, atol = rtol = 1e-5
+      (the same terms in another order), and both times from CUDA events;
+  (i) Line pipelines on the 1000x1000 grid against the numpy oracle (1e-5
+      per cell, exact NaN footprint): half length 4 WeightedAverage 1M
+      staged with state_dir + GeoTIFF + resume, half length 16 direction
+      0.7 Sum 1M host-sourced, per-point direction and half length Average
+      1M, Count with a value channel 1M (the oracle adds 1 per cell), a
+      multi-tile grid (256-cell tiles, the home-tile clip); then the walls
+      of the half length 16, 5M staged path;
+  (j) kernel K6 (the rot-expand probe) through its entry point at the
+      probe's defaults (nsub 64, block 2048, nq 9), then against its plain
+      version, both times from CUDA events.
 Every pipeline runs with gpu_require_strict and must run on a TorchEngine
 on the card, through its kernels: each path is driven with the launch
 counters set to 0 just before it and read just after. The line before last
@@ -78,18 +95,20 @@ def close(got, want, what, atol=TOL, rtol=TOL):
     return err
 
 
-def grid(pcr, size, epsg):
+def grid(pcr, size, epsg, tile=None):
     bbox = pcr.BBox()
     bbox.min_x, bbox.min_y, bbox.max_x, bbox.max_y = 0.0, 0.0, size, size
     gc = pcr.GridConfig()
     gc.bounds = bbox
     gc.cell_size_x, gc.cell_size_y = 1.0, -1.0
     gc.crs = pcr.CRS.from_epsg(epsg)
+    if tile:
+        gc.tile_width = gc.tile_height = tile
     gc.compute_dimensions()
     return gc
 
 
-def cloud(pcr, n, lo, hi, vmax, seed, ts=False):
+def cloud(pcr, n, lo, hi, vmax, seed, ts=False, line_channels=False):
     rng = np.random.default_rng(seed)
     c = pcr.PointCloud.create(n)
     c.set_x_array(rng.uniform(lo, hi, n))
@@ -101,6 +120,11 @@ def cloud(pcr, n, lo, hi, vmax, seed, ts=False):
         c.add_channel("ts", pcr.DataType.Float32)
         c.set_channel_array_f32("ts", rng.integers(0, 1000, n)
                                 .astype(np.float32))
+    if line_channels:
+        for name, arr in (("dir", rng.uniform(-np.pi, np.pi, n)),
+                          ("hl", rng.uniform(0.5, 16.0, n))):
+            c.add_channel(name, pcr.DataType.Float32)
+            c.set_channel_array_f32(name, arr.astype(np.float32))
     return c
 
 
@@ -277,6 +301,82 @@ def gauss_pipeline(pcr, gk, gc, specs, c, label, kinds, staged=False,
     return p, bands, w, launches
 
 
+def lspec(pcr, rtype, name=None, **glyph):
+    sp = pcr.line_splat_spec("value", output_band_name=name, **glyph)
+    sp.type = rtype
+    return sp
+
+
+def rect_case(torch, pcr, lk, n, glyph, label, seed):
+    """(h): K3 against its plain version on the Line layout of n uniform
+    points on the 1000x1000 grid, staged through the port's Pipeline, with
+    two fields (WeightedAverage) and one (Sum): a Line's f0 is its value
+    in both, so the two share the layout. Returns {nf: (err, ms,
+    plain_ms)}."""
+    gc = grid(pcr, 1000, 3857)
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=[lspec(pcr, pcr.ReductionType.WeightedAverage,
+                                   **glyph)],
+        exec_mode=pcr.ExecutionMode.GPU, gpu_require_strict=True))
+    c = cloud(pcr, n, 0.0, 1000.0, 100.0, seed)
+    t0 = time.perf_counter()
+    (chunk,) = p.stage(c).per_spec[0]
+    stage_s = time.perf_counter() - t0
+    check(chunk.kind == "rect", f"{label}: routed to {chunk.kind}, not rect")
+    pr, b, kw = chunk.params, chunk.bids, dict(th=chunk.th, wt=chunk.wt)
+    shape = p._engine._states[0][0].shape
+    live = int((pr[:, 0] <= pr[:, 1]).sum())
+    subs = int(torch.bincount(b.long()).max())
+    res = {}
+    for nf in (2, 1):
+        def fresh():
+            return [torch.zeros(shape, device=p._engine.device)
+                    for _ in range(nf)]
+
+        got, ref, again = fresh(), fresh(), fresh()
+        lk.rect_splat(got, pr, b, **kw)
+        lk.rect_splat_plain(ref, pr, b, **kw)
+        lk.rect_splat(again, pr, b, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in zip(got, again)),
+              f"K3 {label} nf={nf}: reruns are not bit-identical")
+        check(torch.equal(got[-1] != 0, ref[-1] != 0),
+              f"K3 {label} nf={nf}: touched footprints differ")
+        err = max(close(g.cpu().numpy(), r.cpu().numpy(),
+                        f"K3 {label} nf={nf}") for g, r in zip(got, ref))
+        scratch = fresh()
+        ms, plain_ms, turns = time_turns(
+            torch, lambda: lk.rect_splat(scratch, pr, b, **kw),
+            lambda: lk.rect_splat_plain(scratch, pr, b, **kw), reps=5,
+            plain_reps=2)
+        print(f"(h) K3 {label} nf={nf}: nsub={pr.shape[0]} entries={live} "
+              f"max_subchunks_per_tile={subs} stage={stage_s:.4f}s "
+              f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
+              f"(turns: {turns})")
+        res[nf] = (err, ms, plain_ms)
+    return res
+
+
+def line_pipeline(pcr, lk, gc, specs, c, label, staged=False, state_dir="",
+                  output_path=""):
+    """(i): one Line pipeline on the card against the numpy oracle, with
+    K3's launch counter set to 0 just before it and read just after.
+    Returns (pipeline, bands, walls, launches)."""
+    _, oracle, ow = run_pipeline(pcr, gc, specs, c, pcr.ExecutionMode.CPU)
+    lk.rect_splat.launches = 0
+    p, bands, w = run_pipeline(pcr, gc, specs, c, pcr.ExecutionMode.GPU,
+                               staged=staged, state_dir=state_dir,
+                               output_path=output_path)
+    launches = lk.rect_splat.launches
+    check(launches >= 1, f"(i) {label}: K3 was never launched")
+    errs = [close(g, o, f"(i) {label} band {i} vs oracle")
+            for i, (g, o) in enumerate(zip(bands, oracle))]
+    print(f"(i) {label}: {fmt(w)} K3 launches={launches} "
+          f"max_abs_err={max(errs)!r} oracle: {fmt(ow)}")
+    return p, bands, w, launches
+
+
 def k1_layout(pcr, torch, size, n, rtype, seed):
     """A TorchEngine on the card and its K1 layout of n uniform points
     (1% of them invalid) on a size x size grid."""
@@ -304,6 +404,8 @@ def main() -> int:
         return 2
     import pcr_tpu_torch as pcr
     from pcr_tpu_torch.engine import _build, gauss_kernels, kernels
+    from pcr_tpu_torch.engine import line_kernels as lk
+    from pcr_tpu_torch.probes import rot_expand as k6
     RT = pcr.ReductionType
     # the plain versions' matmuls in full float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -321,13 +423,16 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels._lib()
     gauss_kernels._lib()
+    lk._lib()
+    k6._lib()
     print(f"(a) kernel library {os.path.relpath(_build.library_path())} "
           f"ready in {time.perf_counter() - t0:.2f}s")
     log = _build.library_path()[:-3] + ".log"
     if os.path.exists(log):
         with open(log) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "entry function" in line):
                     print("(a) ptxas:", line.strip())
 
     # (b) K1 against its plain version
@@ -493,6 +598,100 @@ def main() -> int:
                                            "on a fully covered grid")
         print(f"(g) sigma 4 Average 5M staged: {fmt(w)} K2 launches="
               f"{l_gauss}")
+        del c5
+
+        # (h) K3 against its plain version
+        hres = {}
+        for label, glyph, n in (
+                ("hl 1 dir 0 5M", dict(default_half_length=1.0), 5_000_000),
+                ("hl 4 dir 0 5M", dict(default_half_length=4.0), 5_000_000),
+                ("hl 16 dir 0.7 1M", dict(default_direction=0.7,
+                                          default_half_length=16.0),
+                 1_000_000),
+                ("hl 16 dir 0 5M", dict(default_half_length=16.0),
+                 5_000_000)):
+            hres[label] = rect_case(torch, pcr, lk, n, glyph, label,
+                                    SEED + 8)
+        # the glyph suite's headline shape: hl 16, direction 0, two fields
+        k3_err = max(e for r in hres.values() for e, _, _ in r.values())
+        _, k3_ms, k3_plain_ms = hres["hl 16 dir 0 5M"][2]
+
+        # (i) Line pipelines against the oracle
+        WA = RT.WeightedAverage
+        c1 = cloud(pcr, 1_000_000, 0.0, 1000.0, 100.0, SEED + 9,
+                   line_channels=True)
+        specs = [lspec(pcr, WA, "line_hl4", default_half_length=4.0)]
+        state_dir = os.path.join(tmp, "i_state")
+        tif = os.path.join(tmp, "i.tif")
+        p, bands, _, _ = line_pipeline(
+            pcr, lk, gc, specs, c1, "hl 4 WeightedAverage 1M staged",
+            staged=True, state_dir=state_dir, output_path=tif)
+        check(np.array_equal(pcr.read_geotiff_band(tif, 0), bands[0],
+                             equal_nan=True), "(i) GeoTIFF != band")
+        resumed = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=specs, exec_mode=pcr.ExecutionMode.GPU,
+            gpu_require_strict=True, state_dir=state_dir))
+        check(all(np.array_equal(a, b) for a, b in zip(
+            resumed._engine.fetch_state(0), p._engine.fetch_state(0))),
+            "(i) resume from state_dir does not reproduce the state")
+        del p, resumed
+        line_pipeline(pcr, lk, gc,
+                      [lspec(pcr, RT.Sum, default_direction=0.7,
+                             default_half_length=16.0)],
+                      c1, "hl 16 dir 0.7 Sum 1M host")
+        line_pipeline(pcr, lk, gc,
+                      [lspec(pcr, RT.Average, direction_channel="dir",
+                             half_length_channel="hl")],
+                      c1, "per-point dir + hl Average 1M host")
+        _, bands, _, _ = line_pipeline(
+            pcr, lk, gc, [lspec(pcr, RT.Count, default_direction=0.7,
+                                default_half_length=4.0)],
+            c1, "Count with a value channel dir 0.7 hl 4 1M host")
+        check(np.nanmax(bands[0]) > 1 and np.nanmin(bands[0]) >= 1,
+              "(i) Count: counts are not whole cells")
+        line_pipeline(pcr, lk, grid(pcr, 1000, 3857, tile=256),
+                      [lspec(pcr, WA, default_direction=0.3,
+                             default_half_length=16.0)],
+                      c1, "256-cell tiles hl 16 dir 0.3 WeightedAverage 1M "
+                      "staged", staged=True)
+        del c1
+
+        # the slice's main path at the glyph suite's size: hl 16, 5M
+        c5 = cloud(pcr, 5_000_000, 0.0, 1000.0, 100.0, SEED + 10)
+        lk.rect_splat.launches = 0
+        _, bands, w = run_pipeline(
+            pcr, gc, [lspec(pcr, WA, default_half_length=16.0)], c5,
+            pcr.ExecutionMode.GPU, staged=True)
+        l_rect = lk.rect_splat.launches
+        check(l_rect >= 1, "(i) the hl 16 5M path never launched K3")
+        check(np.isfinite(bands[0]).all(), "(i) hl 16 5M: empty cells on "
+                                           "a fully covered grid")
+        print(f"(i) hl 16 WeightedAverage 5M staged: {fmt(w)} K3 launches="
+              f"{l_rect}")
+        del c5
+
+        # (j) K6 through its entry point, then against its plain version
+        k6.rot_expand.launches = 0
+        rows = k6.run()
+        l_k6 = k6.rot_expand.launches
+        check(l_k6 >= 1, "(j) the probe never launched K6")
+        for r in rows:
+            print(f"(j) K6 probe {r}")
+            check(r["ok"] and r["bit_identical"],
+                  f"(j) K6 {r['variant']}: wrong or not bit-identical")
+        nsub, nq, block = 64, 9, 2048
+        pp = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            (nq, block), dtype=np.float32)).cuda()
+        got = k6.rot_expand(pp, nsub, "smem").cpu().numpy()
+        want = k6.rot_expand_plain(pp, nsub).cpu().numpy()
+        k6_err = close(got, want, "(j) K6 smem vs plain", rtol=1e-4,
+                       atol=k6.atol(nsub, nq, block))
+        k6_ms, k6_plain_ms, turns = time_turns(
+            torch, lambda: k6.rot_expand(pp, nsub, "smem"),
+            lambda: k6.rot_expand_plain(pp, nsub), reps=20, plain_reps=20)
+        print(f"(j) K6 smem vs plain: max_abs_err={k6_err!r} "
+              f"kernel_ms={k6_ms!r} plain_ms={k6_plain_ms!r} "
+              f"(turns: {turns})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -504,7 +703,12 @@ def main() -> int:
             ("rot_splat_dense", "rot_splat.cu", f"{pk}:414",
              l_rot["rot"], *kstat["rot"]),
             ("rot_splat_packed", "rot_splat.cu", f"{pk}:111",
-             l_rotp["rotp"], *kstat["rotp"])]
+             l_rotp["rotp"], *kstat["rotp"]),
+            ("rect_splat", "rect_splat.cu", f"{pk}:541", l_rect, k3_err,
+             k3_ms, k3_plain_ms),
+            ("rot_expand_probe", "rot_expand_probe.cu",
+             "benchmarks/profile_rot_expand.py:27", l_k6, k6_err, k6_ms,
+             k6_plain_ms)]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"pcr_tpu_torch/csrc/{src}",

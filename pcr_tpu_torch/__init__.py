@@ -9,15 +9,18 @@ core types, the reduction registry, routing, filters, glyph specs, the
 numpy CPU oracle, I/O and the native C++ helpers — are pcr_tpu's own,
 imported rather than copied; none of them imports jax.
 
-Ported so far: the Point and Gaussian glyphs on the device path
+Ported so far: the Point, Gaussian and Line glyphs on the device path
 (ExecutionMode.GPU / Auto / Hybrid), host-sourced and staged ingest,
 finalize with PCRT checkpoints and GeoTIFF output, and resume. Point Sum /
 Count / Average / WeightedAverage run kernel K1 (engine/kernels.py); Max /
 Min / MostRecent / PriorityMerge run torch scatters; Median / Percentile
 stay host-side. Gaussian splats run kernels K2 (separable), K4 (dense
-rotated) and K5 (windowed rotated) (engine/gauss_kernels.py). Line
-glyphs, Custom reductions, out-of-core banding and meshes are refused on
-the device path (NotImplemented) and run on the CPU backend.
+rotated) and K5 (windowed rotated) (engine/gauss_kernels.py); Line glyphs
+run kernel K3, the rect splat of their Bresenham runs
+(engine/line_kernels.py). Kernel K6 is a micro-probe with its own entry
+point (probes/rot_expand.py). Custom reductions, out-of-core banding and
+meshes are refused on the device path (NotImplemented) and run on the CPU
+backend.
 """
 
 from pcr_tpu import __version__  # noqa: F401

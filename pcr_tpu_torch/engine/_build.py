@@ -2,7 +2,8 @@
 Build of the port's CUDA sources — the counterpart of pcr_tpu/native's lazy
 g++ build (pcr_tpu/native/__init__.py:1-70).
 
-Every `csrc/*.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into ONE
+Every `csrc/*.cu` is compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc`
+per source, all started together, and the objects are linked into ONE
 shared library with a plain C interface, loaded through ctypes. The build
 runs at first use, into `pcr_tpu_torch/_build/` (git-ignored), and the
 library's file name carries a hash of the sources and flags, so an edited
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "load", "library_path", "nvcc_path"]
 
@@ -28,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -62,18 +64,37 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"pcr_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmd: list[str]) -> tuple[list[str], subprocess.CompletedProcess]:
+    return cmd, subprocess.run(cmd, capture_output=True, text=True)
+
+
 def _compile(out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    # ptxas -v reports registers, shared memory and spills per kernel
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"pcr_tpu_torch: nvcc failed "
-                           f"({r.returncode}):\n{r.stderr[-4000:]}")
-    os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+    nvcc = nvcc_path()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for obj, src in zip(objs, _sources())]
+    try:
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            runs = list(pool.map(_run, cmds))
+        if all(r.returncode == 0 for _, r in runs):
+            runs.append(_run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                              *objs]))
+        # ptxas -v reports registers, shared memory and spills per kernel
+        with open(out[:-3] + ".log", "w") as f:
+            for cmd, r in runs:
+                f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+        for cmd, r in runs:
+            if r.returncode != 0:
+                raise RuntimeError(f"pcr_tpu_torch: nvcc failed "
+                                   f"({r.returncode}): {' '.join(cmd)}\n"
+                                   f"{r.stderr[-4000:]}")
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
 
 
 def load() -> ctypes.CDLL:

@@ -12,8 +12,8 @@ The base class tags its device backend "jax" and keys every shared device
 branch on that tag (stage, ingest, finalize, resume); here the same tag
 drives the TorchEngine, and no jax code is reached.
 
-Point and Gaussian glyphs run on the device path. Not yet ported, refused
-with StatusCode.NotImplemented there: Line glyphs, Custom reductions,
+Point, Gaussian and Line glyphs run on the device path. Not yet ported,
+refused with StatusCode.NotImplemented there: Custom reductions,
 `gpu_memory_budget` out-of-core banding and device meshes. The CPU backend
 runs them all.
 """
@@ -124,9 +124,6 @@ class Pipeline(_ref.Pipeline):
             raise _not_ported("multi-device meshes")
         if cfg.gpu_memory_budget:
             raise _not_ported("gpu_memory_budget out-of-core banding")
-        for spec, _ in self._plans:
-            if GlyphType(spec.glyph.type) == GlyphType.Line:
-                raise _not_ported("Line glyphs on the device path")
         device = _device_override() or torch.device(
             "cuda", min(cfg.cuda_device_id, cuda_device_count() - 1))
         self._engine = TorchEngine(cfg.grid, self._plans, device)

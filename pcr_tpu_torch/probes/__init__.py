@@ -1,0 +1,1 @@
+"""Micro-probes of the port's kernels on the card (run as modules)."""

@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K4, K5 and the Point and Gaussian slices of the PyTorch
+"""Kernels K1-K6 and the Point, Gaussian and Line slices of the PyTorch
 port on a CUDA card.
 
 These tests need the card (marker `cuda`) and skip without one. That
@@ -12,6 +12,8 @@ K1 is held against its plain PyTorch version at atol = rtol = 1e-5 (the
 two add the same float32 values in different orders), its reruns must be
 bit-identical, and the pipeline against the numpy CPU oracle. K2, K4 and K5
 likewise, at a tolerance that grows with the terms per cell (gauss_rtol).
+K3 (Line runs) at 1e-5, with the same touched cells; K6 (the rot-expand
+probe) at the probe's rtol = 1e-4 with atol = rot_expand.atol(...).
 """
 
 import numpy as np
@@ -238,3 +240,135 @@ def test_gauss_pipeline_on_the_card_matches_oracle(card, glyph, monkeypatch):
                     bands[pcr.ExecutionMode.CPU]):
         assert np.array_equal(np.isnan(g), np.isnan(o))
         np.testing.assert_allclose(g, o, atol=TOL, rtol=TOL)
+
+
+LINES = {
+    "dir0_hl16": dict(default_half_length=16.0),
+    "dir07_hl16": dict(default_direction=0.7, default_half_length=16.0),
+    "per_point": dict(direction_channel="dir", half_length_channel="hl"),
+}
+
+
+def line_cloud(n, seed, w, h):
+    c = make_cloud(n, seed, w, h)
+    rng = np.random.default_rng(seed + 7)
+    for name, arr in (("dir", rng.uniform(-np.pi, np.pi, n)),
+                      ("hl", rng.uniform(0.5, 20.0, n))):
+        c.add_channel(name, pcr.DataType.Float32)
+        c.set_channel_array_f32(name, arr.astype(np.float32))
+    return c
+
+
+def line_spec(glyph, rtype):
+    sp = pcr.line_splat_spec("v", **LINES[glyph])
+    sp.type = rtype
+    return sp
+
+
+@pytest.mark.parametrize("adversarial", [False, True],
+                         ids=["parity", "reruns"])
+@pytest.mark.parametrize("rtype", [RT.WeightedAverage, RT.Sum],
+                         ids=["nf2", "nf1"])
+@pytest.mark.parametrize("glyph", list(LINES))
+def test_k3_matches_plain_and_reruns_bit_identical(card, glyph, rtype,
+                                                   adversarial):
+    """A Line chunk of 200k points on 300 x 200, staged through the
+    Pipeline; adversarial values span 1e-3..1e3 with both signs, where
+    only the reruns are compared (cancellation makes the two summation
+    orders differ by more than 1e-5)."""
+    from pcr_tpu_torch.engine import line_kernels as lk
+    n = 200_000
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=make_grid_config(w=300.0, h=200.0),
+        reductions=[line_spec(glyph, rtype)],
+        exec_mode=pcr.ExecutionMode.GPU, gpu_require_strict=True))
+    c = line_cloud(n, 0, 300.0, 200.0)
+    rng = np.random.default_rng(1)
+    vals = (rng.normal(0, 1, n) * 10.0 ** rng.integers(-3, 4, n)
+            if adversarial else rng.uniform(0, 100, n))
+    c.set_channel_array_f32("v", vals.astype(np.float32))
+    (chunk,) = p.stage(c).per_spec[0]
+    assert chunk.kind == "rect" and chunk.params.is_cuda
+    eng = p._engine
+    init = [torch.from_numpy(rng.uniform(0, 1, s.shape).astype(np.float32))
+            .to(card) for s in eng._states[0]]
+    got, again, want = ([s.clone() for s in init] for _ in range(3))
+    kw = dict(th=chunk.th, wt=chunk.wt)
+    before = lk.rect_splat.launches
+    lk.rect_splat(got, chunk.params, chunk.bids, **kw)
+    lk.rect_splat(again, chunk.params, chunk.bids, **kw)
+    assert lk.rect_splat.launches == before + 2
+    lk.rect_splat_plain(want, chunk.params, chunk.bids, **kw)
+    torch.cuda.synchronize()
+    for g, a, r, s in zip(got, again, want, init):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        if not adversarial:
+            assert torch.equal(g != s, r != s)        # the touched cells
+            torch.testing.assert_close(g, r, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("glyph", list(LINES))
+def test_line_pipeline_on_the_card_matches_oracle(card, glyph, monkeypatch):
+    from pcr_tpu_torch.engine import line_kernels as lk
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    gc = make_grid_config(w=300.0, h=200.0, tile=128)
+    c = line_cloud(50_000, seed=4, w=300.0, h=200.0)
+    specs = [line_spec(glyph, rt) for rt in (RT.WeightedAverage, RT.Count,
+                                             RT.Sum)]
+    bands = {}
+    for mode in (pcr.ExecutionMode.GPU, pcr.ExecutionMode.CPU):
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=specs, exec_mode=mode,
+            gpu_require_strict=True))
+        lk.rect_splat.launches = 0
+        p.ingest(p.stage(c) if p._engine is not None else c)
+        p.finalize()
+        if mode == pcr.ExecutionMode.GPU:
+            assert p._engine.device.type == "cuda"
+            assert lk.rect_splat.launches >= 3
+        bands[mode] = [p.result().band_array(i) for i in range(3)]
+    for g, o in zip(bands[pcr.ExecutionMode.GPU],
+                    bands[pcr.ExecutionMode.CPU]):
+        assert np.array_equal(np.isnan(g), np.isnan(o))
+        np.testing.assert_allclose(g, o, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("variant", ["smem", "loop"])
+def test_k6_matches_plain_and_reruns_bit_identical(card, variant):
+    from pcr_tpu_torch.probes import rot_expand as k6
+    nsub, nq, block = 64, 9, 2048
+    p = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (nq, block), dtype=np.float32)).to(card)
+    before = k6.rot_expand.launches
+    got = k6.rot_expand(p, nsub, variant)
+    again = k6.rot_expand(p, nsub, variant)
+    assert k6.rot_expand.launches == before + 2
+    want = k6.rot_expand_plain(p, nsub)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=k6.atol(nsub, nq, block))
+
+
+@pytest.mark.parametrize("rtype", [RT.Average, RT.Count], ids=["nf2", "nf1"])
+@pytest.mark.parametrize("wt", [64, 256])
+def test_k3_other_tile_widths(card, wt, rtype, monkeypatch):
+    """PCR_RECT_W_TILE (the JAX package's knob, read by rect_col_tile)
+    gives K3 tiles of 64 columns (warps that own none) or 256 (two column
+    passes per thread, two row bands per slice with two fields)."""
+    from pcr_tpu_torch.engine import line_kernels as lk
+    monkeypatch.setenv("PCR_RECT_W_TILE", str(wt))
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=make_grid_config(w=600.0, h=300.0),
+        reductions=[line_spec("per_point", rtype)],
+        exec_mode=pcr.ExecutionMode.GPU, gpu_require_strict=True))
+    (chunk,) = p.stage(line_cloud(100_000, 2, 600.0, 300.0)).per_spec[0]
+    assert chunk.kind == "rect" and chunk.wt == wt
+    kw = dict(th=chunk.th, wt=chunk.wt)
+    got = [torch.zeros_like(s) for s in p._engine._states[0]]
+    want = [torch.zeros_like(s) for s in p._engine._states[0]]
+    lk.rect_splat(got, chunk.params, chunk.bids, **kw)
+    lk.rect_splat_plain(want, chunk.params, chunk.bids, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        assert torch.equal(g != 0, r != 0)
+        torch.testing.assert_close(g, r, atol=TOL, rtol=TOL)

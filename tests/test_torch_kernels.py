@@ -8,6 +8,8 @@ add the same float32 values in different orders, hence atol = rtol = 1e-5;
 cells no live entry reaches must keep their input bits in both.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -236,3 +238,53 @@ def test_library_name_tracks_sources():
     assert path.startswith(_build.BUILD_DIR)
     assert path == _build.library_path()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+FAKE_NVCC = """#!/bin/sh
+out=""; prev=""
+for a in "$@"; do
+  if [ "$prev" = "-o" ]; then out="$a"; fi
+  prev="$a"
+done
+echo "$@" >> "$NVCC_LOG"
+case "$*" in *bad.cu*) echo "bad.cu: error" >&2; exit 1;; esac
+: > "$out"
+"""
+
+
+@pytest.mark.parametrize("broken", [False, True], ids=["ok", "one_fails"])
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path,
+                                               broken):
+    """One nvcc per source (-c), then one link (-shared); a failed source
+    raises with its command and leaves neither objects nor a library."""
+    (tmp_path / "bin").mkdir()
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    names = ["a.cu", "b.cu"] + (["bad.cu"] if broken else [])
+    for name in names:
+        (csrc / name).write_text("// kernel\n")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("NVCC_LOG", str(tmp_path / "calls"))
+    monkeypatch.setattr(_build, "_CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    out = _build.library_path()
+    if broken:
+        with pytest.raises(RuntimeError, match="bad.cu"):
+            _build._compile(out)
+    else:
+        _build._compile(out)
+    calls = (tmp_path / "calls").read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) \
+        == sorted(names)
+    assert all("sm_90a" in c for c in calls)
+    links = [c for c in calls if "-shared" in c]
+    assert len(links) == (0 if broken else 1)
+    left = sorted(os.listdir(tmp_path / "build"))
+    assert not [f for f in left if f.endswith(".o")]
+    assert os.path.exists(out) != broken
+    assert left == sorted([os.path.basename(out)] * (not broken)
+                          + [os.path.basename(out)[:-3] + ".log"])

@@ -229,13 +229,10 @@ def _register_rms():
         finalize_arrays=lambda f: (f[0] / f[1]) ** 0.5)
 
 
-@pytest.mark.parametrize("case", ["line", "custom", "gpu_memory_budget",
-                                  "mesh"])
+@pytest.mark.parametrize("case", ["custom", "gpu_memory_budget", "mesh"])
 def test_unported_features_refuse_on_the_device(case):
     specs, cfg = [spec(RT.Average)], {}
-    if case == "line":
-        specs = [ref.line_splat_spec("v")]
-    elif case == "custom":
+    if case == "custom":
         _register_rms()
         specs = [ref.ReductionSpec(value_channel="v", type=RT.Custom)]
     elif case == "gpu_memory_budget":
