@@ -14,7 +14,10 @@ Phases:
       WeightedAverage) and of the main path's 160x160 grid: atol = rtol =
       1e-5 (the two add the same float32 values in different orders), the
       same touched footprint, bit-identical kernel reruns, and both times
-      from CUDA events after a warm-up;
+      from CUDA events after a warm-up; beside them the two one-call
+      rivals over the precomputed live cells (index_add_, atomic, and
+      index_put_(accumulate=True) under deterministic algorithms), K1's
+      byte bound, and K1's time at other group sizes;
   (c) the main path, the bench's primary harness: 160x160 grid, 1 m cells,
       EPSG:32610, 5M points, Average, state_dir + output_path, stage ->
       ingest(staged) -> finalize; band against the numpy CPU oracle, the
@@ -55,8 +58,12 @@ Phases:
       version, both times from CUDA events.
 Every pipeline runs with gpu_require_strict and must run on a TorchEngine
 on the card, through its kernels: each path is driven with the launch
-counters set to 0 just before it and read just after. The line before last
-is a JSON summary of the kernels; the last line is
+counters set to 0 just before it and read just after. Nothing of pcr_tpu or
+jax may be imported (checked at the end). The line before last is a JSON
+summary of the kernels, each with its bound: the larger of the bytes it
+must move (each input read once, each output written once) over 3.35 TB/s
+and the float32 operations its data needs over 67 TFLOP/s (the H100 SXM's
+data-sheet peaks); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -72,6 +79,8 @@ import numpy as np
 
 SEED = 20260101
 TOL = 1e-5
+HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+F32_FLOP_S = 67e12      # H100 SXM float32 peak outside the tensor cores
 
 
 def check(cond, msg):
@@ -165,8 +174,37 @@ def fmt(walls):
     return " ".join(f"{k}={v:.4f}s" for k, v in walls.items())
 
 
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the least time for `nbytes` of device memory
+    traffic and `nops` float32 operations, whichever is larger."""
+    b, o = nbytes / HBM_BYTES_S * 1e3, nops / F32_FLOP_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def io_bytes(params, bids, states):
+    """A splat's bytes: params and bids read once, the states read and
+    written once."""
+    return (params.numel() * params.element_size() + bids.numel() * 4
+            + 2 * sum(s.numel() * 4 for s in states))
+
+
+def window_cells(torch, bids, th, wt, ncb, x0, x1, y0, y1):
+    """Cells of each entry's inclusive rectangle [x0, x1] x [y0, y1]
+    ((nsub, block) tensors) inside its sub-chunk's (th, wt) tile, summed:
+    the cells this run's data needs evaluated."""
+    b = bids.long()[:, None]
+    c0, r0 = (b % ncb * wt).double(), (b // ncb * th).double()
+    nx = (torch.minimum(x1.double(), c0 + wt - 1)
+          - torch.maximum(x0.double(), c0) + 1).clamp(min=0)
+    ny = (torch.minimum(y1.double(), r0 + th - 1)
+          - torch.maximum(y0.double(), r0) + 1).clamp(min=0)
+    return float((nx * ny).sum())
+
+
 def k1_case(torch, kernels, eng, staged, with_f1, label, reps):
-    """K1 against its plain version on one staged layout."""
+    """K1 against its plain version on one staged layout, then against the
+    one-call rivals, its bound and other group sizes. Returns a dict of
+    the row's numbers."""
     p, b = staged.params, staged.bids
     shape = eng._states[0][0].shape
     kw = dict(th=kernels.TH, wt=eng.WT, with_f1=with_f1)
@@ -194,7 +232,64 @@ def k1_case(torch, kernels, eng, staged, with_f1, label, reps):
         reps=reps, plain_reps=reps)
     print(f"(b) K1 {label}: nsub={p.shape[0]} max_abs_err={err!r} "
           f"kernel_ms={ms!r} plain_ms={plain_ms!r} (turns: {t})")
-    return err, ms, plain_ms
+
+    # the rivals: one PyTorch call per field over the precomputed live
+    # cells and their values (what the plain version reduces to)
+    h_pad, w_pad = shape
+    ncb = w_pad // eng.WT
+    bid = b.long()[:, None]
+    c0, r0 = bid % ncb * eng.WT, bid // ncb * kernels.TH
+    icx, icy = p[:, 0].long(), p[:, 1].long()
+    live = ((bid >= 0) & (bid < h_pad // kernels.TH * ncb)
+            & (icx >= c0) & (icx < c0 + eng.WT)
+            & (icy >= r0) & (icy < r0 + kernels.TH))
+    cells = (icy * w_pad + icx)[live]
+    vals = [p[:, 2].view(torch.float32)[live],
+            (p[:, 3].view(torch.float32)[live] if with_f1
+             else torch.ones(cells.shape, device=cells.device))]
+
+    def index_add():
+        for s, v in zip(scratch, vals):
+            s.view(-1).index_add_(0, cells, v)
+
+    def index_put():
+        torch.use_deterministic_algorithms(True)
+        for s, v in zip(scratch, vals):
+            s.view(-1).index_put_((cells,), v, accumulate=True)
+        torch.use_deterministic_algorithms(False)
+
+    rivals = {}
+    for name, fn in (("index_add_", index_add),
+                     ("index_put_ deterministic", index_put)):
+        k_ms, r_ms, t = time_turns(
+            torch, lambda: kernels.sorted_splat_point(scratch, p, b, **kw),
+            fn, reps=reps, plain_reps=reps)
+        rivals[name] = r_ms
+        print(f"(b) K1 {label}: {name} over {cells.numel()} live cells "
+              f"rival_ms={r_ms!r} kernel_ms={k_ms!r} (turns: {t})")
+    bms, by = bound(io_bytes(p, b, scratch), live.sum().item() * 2)
+    groups = {}
+    for g in (4, 8, 16, 32, 64):
+        groups[g], _, _ = time_turns(
+            torch, lambda: kernels.sorted_splat_point(scratch, p, b, group=g,
+                                                      **kw),
+            lambda: None, reps=reps, plain_reps=1)
+    print(f"(b) K1 {label}: bound_ms={bms!r} ({by}) default group="
+          f"{kernels.k1_group_size(p.shape[0])}; kernel_ms by group size "
+          f"{groups}")
+    # where K1's time goes: its two passes' device time (torch.profiler)
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(5):
+            kernels.sorted_splat_point(scratch, p, b, **kw)
+        torch.cuda.synchronize()
+    passes = {ev.key.split("<")[0].split("::")[-1]:
+              ev.device_time_total / ev.count for ev in prof.key_averages()
+              if ev.device_time_total > 0 and "k1_" in ev.key}
+    print(f"(b) K1 {label}: device us per launch by pass {passes}")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=rivals["index_add_"],
+                rival_ms=rivals["index_put_ deterministic"])
 
 
 def time_turns(torch, kern, plain, reps, plain_reps):
@@ -271,11 +366,26 @@ def gauss_case(torch, pcr, size, n, label, glyph, want_kind, seed):
     ms, plain_ms, turns = time_turns(
         torch, lambda: kern(scratch, pr, b, **kw),
         lambda: plain(scratch, pr, b, **kw), reps=3, plain_reps=1)
+    # the bound: the cells of each entry's window inside its tile, each a
+    # weight (K2: wy * wx, 1 op; K4/K5: the completed square and exp2, 5
+    # ops) and one FMA a field
+    ncb = shape[1] // chunk.wt
+    seg = lambda i: pr[:, i].float()
+    if chunk.kind == "rotp":
+        win = (seg(6), seg(7), seg(8), seg(9))
+    else:
+        cx, cy, r = ((seg(0), seg(1), seg(6)) if chunk.kind == "gauss"
+                     else (seg(6), seg(7), seg(8)))
+        win = (cx - r, cx + r, cy - r, cy + r)
+    cells = window_cells(torch, b, chunk.th, chunk.wt, ncb, *win)
+    per_cell = (1 if chunk.kind == "gauss" else 5) + 2 * len(scratch)
+    bms, by = bound(io_bytes(pr, b, scratch), cells * per_cell)
     print(f"(f) {label}: {chunk.kind} th={chunk.th} wt={chunk.wt} "
           f"cut={chunk.cut} nsub={pr.shape[0]} rtol={rtol:.3g} "
           f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
+          f"window_cells={cells:.0f} bound_ms={bms!r} ({by}) "
           f"(turns: {turns})")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, (bms, by)
 
 
 def gauss_pipeline(pcr, gk, gc, specs, c, label, kinds, staged=False,
@@ -350,11 +460,16 @@ def rect_case(torch, pcr, lk, n, glyph, label, seed):
             torch, lambda: lk.rect_splat(scratch, pr, b, **kw),
             lambda: lk.rect_splat_plain(scratch, pr, b, **kw), reps=5,
             plain_reps=2)
+        # the bound: each run's cells inside its tile, one add a field
+        cells = window_cells(torch, b, chunk.th, chunk.wt,
+                             shape[1] // chunk.wt, pr[:, 0], pr[:, 1],
+                             pr[:, 2], pr[:, 3])
+        bms, by = bound(io_bytes(pr, b, scratch), cells * nf)
         print(f"(h) K3 {label} nf={nf}: nsub={pr.shape[0]} entries={live} "
               f"max_subchunks_per_tile={subs} stage={stage_s:.4f}s "
               f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
-              f"(turns: {turns})")
-        res[nf] = (err, ms, plain_ms)
+              f"cells={cells:.0f} bound_ms={bms!r} ({by}) (turns: {turns})")
+        res[nf] = (err, ms, plain_ms, (bms, by))
     return res
 
 
@@ -443,11 +558,10 @@ def main() -> int:
              "1000x1000 5M WeightedAverage"),
             (160, 5_000_000, RT.Average, False, "160x160 5M Average")):
         eng, staged = k1_layout(pcr, torch, size, n, rtype, SEED)
-        err, ms, plain_ms = k1_case(torch, kernels, eng, staged, f1, label,
-                                    reps=10)
-        errs.append(err)
+        k1 = k1_case(torch, kernels, eng, staged, f1, label, reps=10)
+        errs.append(k1["err"])
         del eng, staged
-    main_ms, main_plain_ms = ms, plain_ms     # the main path's shape: 160x160
+    # the row's numbers are the main path's shape: 160x160 (the last)
 
     tmp = tempfile.mkdtemp(prefix="pcr_chip_smoke_")
     try:
@@ -544,7 +658,7 @@ def main() -> int:
                              SEED + 4)
             fres.setdefault(kind, []).append(res)
         # the glyph suite's headline shapes: sigma 4 (K2), the rotated rows
-        kstat = {k: (max(e for e, _, _ in v), v[-1][1], v[-1][2])
+        kstat = {k: (max(r[0] for r in v), v[-1][1], v[-1][2], v[-1][3])
                  for k, v in fres.items()}
 
         # (g) Gaussian pipelines against the oracle
@@ -613,8 +727,8 @@ def main() -> int:
             hres[label] = rect_case(torch, pcr, lk, n, glyph, label,
                                     SEED + 8)
         # the glyph suite's headline shape: hl 16, direction 0, two fields
-        k3_err = max(e for r in hres.values() for e, _, _ in r.values())
-        _, k3_ms, k3_plain_ms = hres["hl 16 dir 0 5M"][2]
+        k3_err = max(v[0] for r in hres.values() for v in r.values())
+        _, k3_ms, k3_plain_ms, k3_bound = hres["hl 16 dir 0 5M"][2]
 
         # (i) Line pipelines against the oracle
         WA = RT.WeightedAverage
@@ -689,31 +803,42 @@ def main() -> int:
         k6_ms, k6_plain_ms, turns = time_turns(
             torch, lambda: k6.rot_expand(pp, nsub, "smem"),
             lambda: k6.rot_expand_plain(pp, nsub), reps=20, plain_reps=20)
+        # the bound: the probe's out is nsub expansions of p, each
+        # 128 outputs x nq x block / 4 adds; p read once, out written once
+        k6_bound = bound(nq * block * 4 + 128 * 4, nsub * nq * block * 32)
         print(f"(j) K6 smem vs plain: max_abs_err={k6_err!r} "
               f"kernel_ms={k6_ms!r} plain_ms={k6_plain_ms!r} "
-              f"(turns: {turns})")
+              f"bound_ms={k6_bound[0]!r} ({k6_bound[1]}) (turns: {turns})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # one PyTorch call computes K1's function (index_add_, and its
+    # deterministic rival index_put_); none computes K2-K6's
     pk = "pcr_tpu/engine/pallas_kernels.py"
     rows = [("sorted_splat_point", "sorted_splat_point.cu", f"{pk}:321",
-             launches, max(errs), main_ms, main_plain_ms),
+             launches, max(errs), k1["ms"], k1["plain_ms"],
+             (k1["bound_ms"], k1["bound_by"]), k1["library_ms"],
+             k1["rival_ms"]),
             ("sorted_splat_gauss", "sorted_splat_gauss.cu", f"{pk}:560",
-             l_gauss, *kstat["gauss"]),
+             l_gauss, *kstat["gauss"], None, None),
             ("rot_splat_dense", "rot_splat.cu", f"{pk}:414",
-             l_rot["rot"], *kstat["rot"]),
+             l_rot["rot"], *kstat["rot"], None, None),
             ("rot_splat_packed", "rot_splat.cu", f"{pk}:111",
-             l_rotp["rotp"], *kstat["rotp"]),
+             l_rotp["rotp"], *kstat["rotp"], None, None),
             ("rect_splat", "rect_splat.cu", f"{pk}:541", l_rect, k3_err,
-             k3_ms, k3_plain_ms),
+             k3_ms, k3_plain_ms, k3_bound, None, None),
             ("rot_expand_probe", "rot_expand_probe.cu",
              "benchmarks/profile_rot_expand.py:27", l_k6, k6_err, k6_ms,
-             k6_plain_ms)]
+             k6_plain_ms, k6_bound, None, None)]
+    leaked = [m for m in ("pcr_tpu", "pcr", "jax") if m in sys.modules]
+    check(not leaked, f"the port imported {leaked}")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"pcr_tpu_torch/csrc/{src}",
         "replaces": rep, "launches": n, "max_abs_err": err, "ms": ms,
-        "plain_ms": pms} for name, src, rep, n, err, ms, pms in rows]}))
+        "plain_ms": pms, "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": lib_ms, "rival_ms": rival}
+        for name, src, rep, n, err, ms, pms, bnd, lib_ms, rival in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

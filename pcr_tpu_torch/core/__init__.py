@@ -1,1 +1,2 @@
-"""Device probes of the port (the core types are pcr_tpu's)."""
+"""The port's core types, grid and point cloud (copies of pcr_tpu/core),
+and its CUDA device probes."""

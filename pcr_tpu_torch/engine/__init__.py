@@ -1,1 +1,2 @@
-"""The port's device engine, kernels and Pipeline."""
+"""The port's host layers (copies of pcr_tpu/engine), its device engine,
+kernels and Pipeline."""

@@ -15,15 +15,20 @@ header comment has the design. In short:
     the (H_pad, W_pad) state fields. Live entries fold f0 into field 0 and
     f1 (or 1.0 for Average) into field 1; entries outside their tile are
     dead; runs with bids outside [0, nb_total) are skipped.
-  * What bounds it on the card: one CTA owns one tile's run and walks its
-    sub-chunks in order, so a grid with few tiles uses few of the 132 SMs;
-    per sub-chunk the block radix sort in shared memory sets the time, not
-    the 12-16 B of device memory read per entry.
+  * What bounds it on the card: per sub-chunk the work in shared memory
+    (ranking the entries by owner and folding them), not the 12-16 B of
+    device memory read per entry; and how many SMs the sub-chunks spread
+    over.
   * What the design does about it: it gives up the TPU's one-hot matmul
     (the TPU has no scatter) and its float-atomic alternative (reruns would
-    differ in the last bits): a stable sort by cell plus one fixed-order
-    sum per cell keeps reruns bit-identical, and only one 2048-entry
-    sub-chunk, not the tile, lives in shared memory.
+    differ in the last bits). Each tile's run is cut into groups of
+    consecutive sub-chunks (`k1_plan`, a function of `bids` alone); a CTA
+    folds a group into its slice of the tile held in shared memory
+    (`slice_rows` rows), each cell owned by one warp, which sums the
+    cell's terms in an order fixed by the input, so reruns are
+    bit-identical. A run's only group adds its slice to the state; groups
+    of a run with more than one write their partial tile into scratch,
+    and a second pass adds the partials to the state in group order.
 
 The states are updated IN PLACE. The wrapper takes the plain version only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
@@ -33,17 +38,22 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from pcr_tpu.engine.pallas_kernels import col_tile, padded_width  # noqa: F401
-
 from . import _build
+from .tiling import col_tile, padded_width  # noqa: F401
 
-__all__ = ["BLOCK", "TH", "col_tile", "padded_width", "sorted_splat_point",
+__all__ = ["BLOCK", "TH", "col_tile", "padded_width", "k1_group_size",
+           "k1_plan", "slice_rows", "sorted_splat_point",
            "sorted_splat_point_plain"]
 
 TH = 128        # tile rows (the TPU's GAUSS_ROW_BLOCK)
 BLOCK = 2048    # entries per sub-chunk (the TPU's PALLAS_BLOCK)
+GROUP_MIN = 4           # fewest sub-chunks in a full group
+GROUP_TARGET = 132      # about this many groups on few tiles, whatever nsub
+TILE_BYTES = 192 << 10  # shared memory for one CTA's slice of a tile
+COUNT16_GROUP_MAX = 31  # 16-bit counts hold a group: 31 * 2048 < 65536
 
 _BOUND = None
 
@@ -54,7 +64,7 @@ def _lib():
         lib = _build.load()
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.pcr_sorted_splat_point.argtypes = [
-            vp, vp, ctypes.c_int64, vp, vp] + [i32] * 8 + [vp]
+            vp, vp, ctypes.c_int64, vp, vp, vp] + [i32] * 10 + [vp]
         lib.pcr_sorted_splat_point.restype = i32
         lib.pcr_sorted_splat_point_block.argtypes = []
         lib.pcr_sorted_splat_point_block.restype = i32
@@ -63,6 +73,54 @@ def _lib():
                                "differs from kernels.BLOCK")
         _BOUND = lib
     return _BOUND
+
+
+def k1_group_size(nsub: int) -> int:
+    """Sub-chunks per full group of K1's first pass, from nsub alone: at
+    least GROUP_MIN, and large enough that a run of all nsub sub-chunks
+    makes about GROUP_TARGET groups (which bounds the scratch and the
+    second pass's reads)."""
+    return max(GROUP_MIN, -(-int(nsub) // GROUP_TARGET))
+
+
+def slice_rows(th: int, wt: int, cell_bytes: int) -> int:
+    """Tile rows per CTA of K1's first pass: th halved until the slice
+    (cell_bytes a cell: 4 per float32 field, 6 for Average's float32 sum
+    and 16-bit count) fits TILE_BYTES of shared memory. A 128 x 256 tile
+    fits whole with one field or Average's pair, in halves with two."""
+    rs = th
+    while cell_bytes * rs * wt > TILE_BYTES and rs % 2 == 0:
+        rs //= 2
+    if cell_bytes * rs * wt > TILE_BYTES:
+        raise ValueError(f"sorted_splat_point: a ({th}, {wt}) tile has no "
+                         f"row slice that fits {TILE_BYTES} B of shared "
+                         f"memory")
+    return rs
+
+
+def k1_plan(bids, nb_total: int, group: int | None = None):
+    """The groups of K1's first pass, as the kernel forms them: a group
+    starts at each run's first sub-chunk and at each sub-chunk whose index
+    is a multiple of `group` (k1_group_size(nsub) by default), and ends
+    before the next start. Returns int64 arrays (first, end, slot), one
+    entry per group of a live run (bid in [0, nb_total)), in sub-chunk
+    order; `slot` is -1 for a run's only group (it writes the state), else
+    the scratch tile it writes: 2b for the group starting at block b's
+    first sub-chunk (b = first // group), 2b + 1 for one starting inside
+    block b. A function of `bids` (and `group`) alone."""
+    bids = np.asarray(bids, np.int64)
+    nsub = len(bids)
+    group = group or k1_group_size(nsub)
+    j = np.arange(nsub)
+    run_start = np.ones(nsub, bool)
+    run_start[1:] = bids[1:] != bids[:-1]
+    first = np.flatnonzero(run_start | (j % group == 0))
+    end = np.append(first[1:], nsub)
+    run_end = np.append(run_start[1:], True)[end - 1]   # last of its run
+    alone = run_start[first] & run_end
+    slot = np.where(alone, -1, 2 * (first // group) + (first % group != 0))
+    keep = (bids[first] >= 0) & (bids[first] < nb_total)
+    return first[keep], end[keep], slot[keep]
 
 
 def _check(states, params, bids, th: int, wt: int, with_f1: bool) -> None:
@@ -91,8 +149,12 @@ def _check(states, params, bids, th: int, wt: int, with_f1: bool) -> None:
 
 
 def sorted_splat_point(states, params: torch.Tensor, bids: torch.Tensor, *,
-                       th: int, wt: int, with_f1: bool) -> None:
-    """K1: fold every live entry of `params` into `states`, in place."""
+                       th: int, wt: int, with_f1: bool,
+                       group: int | None = None) -> None:
+    """K1: fold every live entry of `params` into `states`, in place.
+    `group` (sub-chunks per full group, k1_group_size(nsub) by default)
+    is there to time other groupings; every grouping gives the same
+    result up to the order of float32 sums."""
     _check(states, params, bids, th, wt, with_f1)
     dev = states[0].device
     if dev.type == "cpu":
@@ -108,14 +170,23 @@ def sorted_splat_point(states, params: torch.Tensor, bids: torch.Tensor, *,
     lib = _lib()
     h_pad, w_pad = states[0].shape
     ncb = w_pad // wt
+    nsub = params.shape[0]
+    group = int(group or k1_group_size(nsub))
+    nf = len(states)
+    count16 = nf == 2 and not with_f1 and group <= COUNT16_GROUP_MAX
+    # two scratch tiles per block of `group` sub-chunks (see k1_plan)
+    scratch = torch.empty(2 * -(-nsub // group) * len(states) * th * wt,
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pcr_sorted_splat_point(
-            params.data_ptr(), bids.data_ptr(), params.shape[0],
+            params.data_ptr(), bids.data_ptr(), nsub,
             states[0].data_ptr(),
             states[1].data_ptr() if len(states) == 2 else None,
-            len(states), int(with_f1), th, wt, ncb, h_pad // th * ncb,
-            w_pad, (th * wt).bit_length(), stream)
+            scratch.data_ptr(), nf, int(with_f1), int(count16), th, wt, ncb,
+            h_pad // th * ncb, w_pad,
+            slice_rows(th, wt, 6 if count16 else 4 * nf), group,
+            stream)
     if err != 0:
         raise RuntimeError(f"sorted_splat_point: launch failed "
                            f"(cudaError {err})")

@@ -8,9 +8,9 @@ torch tensors.
     kernel K1 (kernels.sorted_splat_point), Gaussian glyphs through K2, K4
     or K5 (gauss_kernels), Line glyphs through K3 (line_kernels), each over
     the TPU's host layout: 2-D (row block x col block) tile buckets with
-    halo copies, sub-chunk-major packed segments + bids, built by
-    pcr_tpu.native (bucket_layout, pack_sub_major). K5 alone takes its own
-    layout (see prepare_gaussian).
+    halo copies, sub-chunk-major packed segments + bids, built by the
+    port's native library (bucket_layout, pack_sub_major). K5 alone takes
+    its own layout (see prepare_gaussian).
   * Max / Min / MostRecent / PriorityMerge keep flat (C,) states and go
     through torch scatters (order-free, so deterministic).
 
@@ -33,24 +33,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pcr_tpu import native
-from pcr_tpu.core.grid_config import GridConfig
-from pcr_tpu.core.types import PcrError, ReductionType, Status, StatusCode
-from pcr_tpu.engine import routing
-from pcr_tpu.engine.pallas_kernels import (gauss_col_tile, gauss_row_block,
-                                           rect_col_tile)
-from pcr_tpu.engine.tpu_backend import (ROT_COL_TILE, ROT_ROW_BLOCK,
-                                        ROTP_RMAX, ROTP_ROW_BLOCK, TpuEngine,
-                                        gauss_corr_offsets,
-                                        gauss_product_cutoff_bites)
-from pcr_tpu.ops.reduction import FLT_MAX
-
-from ..ops.reduction import finalize_fields, gauss_state_flush
-from . import gauss_kernels, kernels, line_kernels
+from .. import native
+from ..core.grid_config import GridConfig
+from ..core.types import PcrError, ReductionType, Status, StatusCode
+from ..ops.reduction import FLT_MAX, finalize_fields, gauss_state_flush
+from . import gauss_kernels, kernels, line_kernels, routing
 from .gauss_kernels import (GaussGeom, rot_splat_dense, rot_splat_packed,
                             sorted_splat_gauss)
+from .kernels import BLOCK, TH, sorted_splat_point
 from .line_kernels import rect_splat
-from .kernels import BLOCK, TH, col_tile, padded_width, sorted_splat_point
+from .tiling import (ROT_COL_TILE, ROT_ROW_BLOCK, ROTP_RMAX, ROTP_ROW_BLOCK,
+                     col_tile, gauss_col_tile, gauss_corr_offsets,
+                     gauss_product_cutoff_bites, gauss_row_block,
+                     padded_width, rect_col_tile, rot_quadratic_segs)
 
 __all__ = ["StagedChunk", "TorchEngine", "halo_copies", "layout_tiles",
            "layout_tiles_numpy"]
@@ -234,8 +229,8 @@ class TorchEngine:
     # -- state access --------------------------------------------------------
 
     def load_state(self, spec_idx: int, fields_hw) -> None:
-        """Replace the state from host (H, W) field arrays: resume, or the
-        carry-across from pcr_tpu (TpuEngine.fetch_state's numpy)."""
+        """Replace the state from host (H, W) field arrays: resume, or state
+        carried across from another engine's fetch_state."""
         _, info = self.plans[spec_idx]
         st = []
         for fi, f in enumerate(fields_hw):
@@ -345,8 +340,9 @@ class TorchEngine:
           * K4, the dense rotated splat, for the rest.
 
         The routing constants and the completed-square coefficients are
-        the JAX package's own, so both packages route alike and build
-        bit-identical coefficients. `wire_cheap` is accepted and ignored."""
+        copies of the JAX package's (engine/tiling.py), so both packages
+        route alike and build bit-identical coefficients. `wire_cheap` is
+        accepted and ignored."""
         _, info = self.plans[spec_idx]
         n = len(values)
         r = np.where(valid, gp.r, np.int32(-1)).astype(np.int32)
@@ -368,7 +364,7 @@ class TorchEngine:
             return [self._prepare_rotp(gp, valid, r, f0, n)]
         if dense:
             th, wt = ROT_ROW_BLOCK, ROT_COL_TILE
-            quad = TpuEngine._rot_quadratic_segs(gp, f0)
+            quad = rot_quadratic_segs(gp, f0)
             segs = [(q, 0.0) for q in quad] + [
                 (gp.icx.astype(np.float32), 0.0),
                 (gp.icy.astype(np.float32), 0.0),
@@ -426,7 +422,7 @@ class TorchEngine:
         ncb = self.W_state // wt
         idx, eb = halo_copies(rlo // th, np.where(alive, rhi // th, -1),
                               wlo // wt, whi // wt, ncb)
-        quad = TpuEngine._rot_quadratic_segs(gp, f0)
+        quad = rot_quadratic_segs(gp, f0)
         segs = [(quad[0], 0.0), (quad[1], 0.0), (quad[2], 0.0),
                 (quad[3], 1.0), (quad[4], 0.0), (quad[5], 0.0),
                 (wlo.astype(np.float32), 1.0), (whi.astype(np.float32), 0.0),

@@ -1,1 +1,1 @@
-"""Torch forms of the reduction finalizes (the registry is pcr_tpu's)."""
+"""The reduction registry (a copy of pcr_tpu/ops) and its torch finalizes."""

@@ -107,6 +107,58 @@ def test_k1_matches_plain_and_reruns_bit_identical(card, w, h, n, rtype,
             torch.testing.assert_close(g, r, atol=TOL, rtol=TOL)
 
 
+K1_FIELDS = {"one": RT.Sum, "two": RT.Average, "two_f1": RT.WeightedAverage}
+K1_SPLITS = {   # (w, h, n, group): layouts whose runs split into groups
+    "160x160": (160, 160, 1_000_000, None),     # 2 tiles, ~250 groups each
+    "one_tile": (100, 100, 400_000, None),      # 1 tile, one long run
+    "long_run": (160, 160, 2_000_000, 2),       # ~500 partial tiles a run
+}
+
+
+@pytest.mark.parametrize("adversarial", [False, True],
+                         ids=["parity", "reruns"])
+@pytest.mark.parametrize("fields", list(K1_FIELDS))
+@pytest.mark.parametrize("case", list(K1_SPLITS))
+def test_k1_split_runs(card, case, fields, adversarial):
+    """K1 with a tile's run split over many CTAs and merged in group order:
+    reruns are bit-identical (adversarial values, where float add order
+    shows) and the result is within 1e-5 of the plain version."""
+    w, h, n, group = K1_SPLITS[case]
+    eng, st = layout(card, w, h, n, K1_FIELDS[fields], adversarial, seed=2)
+    nb_total = eng.H_pad // kernels.TH * eng.ncb
+    first, _, slot = kernels.k1_plan(st.bids.cpu().numpy(), nb_total, group)
+    assert (slot >= 0).sum() > 2 * nb_total        # the runs really split
+    kw = dict(th=kernels.TH, wt=eng.WT, with_f1=st.params.shape[1] == 4)
+    rng = np.random.default_rng(3)
+    init = [torch.from_numpy(rng.uniform(0, 1, s.shape).astype(np.float32))
+            .to(card) for s in eng._states[0]]
+    got, again, want = ([s.clone() for s in init] for _ in range(3))
+    kernels.sorted_splat_point(got, st.params, st.bids, group=group, **kw)
+    kernels.sorted_splat_point(again, st.params, st.bids, group=group, **kw)
+    kernels.sorted_splat_point_plain(want, st.params, st.bids, **kw)
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, want):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        if not adversarial:
+            torch.testing.assert_close(g, r, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("group", [1, 3, 7, 1 << 20])
+def test_k1_every_grouping_matches_plain(card, group):
+    """The grouping moves only the order of float32 sums: one sub-chunk a
+    group, odd sizes, and one group a run (the first design) all agree
+    with the plain version at 1e-5."""
+    eng, st = layout(card, 300, 200, 300_000, RT.WeightedAverage, False,
+                     seed=4)
+    kw = dict(th=kernels.TH, wt=eng.WT, with_f1=True)
+    got = [torch.zeros_like(s) for s in eng._states[0]]
+    want = [torch.zeros_like(s) for s in eng._states[0]]
+    kernels.sorted_splat_point(got, st.params, st.bids, group=group, **kw)
+    kernels.sorted_splat_point_plain(want, st.params, st.bids, **kw)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=TOL, rtol=TOL)
+
+
 def test_k1_refuses_a_foreign_block_size(card):
     states = [torch.zeros(128, 256, device=card)]
     params = torch.zeros(1, 3, 1024, dtype=torch.int32, device=card)

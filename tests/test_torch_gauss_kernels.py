@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import pcr_tpu as ref
+import pcr_tpu_torch as port_pkg
 from conftest import make_grid_config
 from pcr_tpu.engine import routing
 from pcr_tpu.engine.tpu_backend import PALLAS_BLOCK, TpuEngine
@@ -30,6 +31,7 @@ from pcr_tpu_torch.engine.torch_backend import (TorchEngine, halo_copies,
                                                 layout_tiles,
                                                 layout_tiles_numpy)
 from pcr_tpu_torch.ops.reduction import gauss_state_flush
+from test_torch_pipeline import like
 
 RT = ref.ReductionType
 TOL = 1e-5
@@ -74,7 +76,10 @@ def inputs(gc, spec, n=1500, seed=0):
 def engines(monkeypatch, gc, spec):
     monkeypatch.setenv("PCR_PALLAS", "interpret")
     plans = [(spec, ref.get_reduction_info(spec.type))]
-    return TpuEngine(gc, plans), TorchEngine(gc, plans, torch.device("cpu"))
+    return TpuEngine(gc, plans), TorchEngine(
+        like(port_pkg, gc), [(like(port_pkg, spec),
+                              port_pkg.get_reduction_info(spec.type))],
+        torch.device("cpu"))
 
 
 def jax_chunk(jeng, glyph, inp):
@@ -154,7 +159,7 @@ def test_k5_plain_matches_pallas(monkeypatch, rtype, tile):
     jeng, port = engines(monkeypatch, gc, spec)
     inp = inputs(gc, spec)
     want = run_jax(jax_chunk(jeng, "rot4", inp), zero_states(jeng))
-    (st,) = port.prepare_gaussian(0, *inp)
+    (st,) = port.prepare_gaussian(0, *like(port_pkg, inp))
     assert st.kind == "rotp" and st.params.dtype == torch.float32
     port.commit(0, [st])
     for g, w in zip(port._states[0], want):
@@ -167,7 +172,7 @@ def port_chunk(monkeypatch, glyph, gc=None):
     spec = spec_of(glyph, RT.Average)
     jeng, port = engines(monkeypatch, gc, spec)
     inp = inputs(gc, spec)
-    (st,) = port.prepare_gaussian(0, *inp)
+    (st,) = port.prepare_gaussian(0, *like(port_pkg, inp))
     return jeng, port, inp, st
 
 
@@ -309,12 +314,15 @@ def test_state_flush_matches_jax(rtype, glyph):
     spec = (spec_of("s4", rtype) if glyph == "gaussian"
             else ref.ReductionSpec(value_channel="v", type=rtype))
     info = ref.get_reduction_info(rtype)
+    port_spec, port_info = like(port_pkg, spec), port_pkg.get_reduction_info(
+        rtype)
     rng = np.random.default_rng(4)
     fields = [(rng.uniform(0, 2e-6, (30, 40))
                * rng.integers(0, 2, (30, 40))).astype(np.float32)
               for _ in range(info.state_floats)]
     want = jax_flush(spec, info, [f.copy() for f in fields], np)
-    got = gauss_state_flush(spec, info, [torch.from_numpy(f) for f in fields])
+    got = gauss_state_flush(port_spec, port_info,
+                            [torch.from_numpy(f) for f in fields])
     for g, w, f in zip(got, want, fields):
         assert np.array_equal(np.asarray(g), w)
     if glyph == "gaussian" and rtype != RT.Sum:

@@ -24,7 +24,7 @@ import pcr_tpu as ref
 import pcr_tpu_torch as port
 from conftest import make_grid_config
 from pcr_tpu_torch.engine.torch_backend import TorchEngine
-from test_torch_pipeline import NO_JAX_QUICKSTART, REPO
+from test_torch_pipeline import NO_JAX_QUICKSTART, REPO, like
 
 RT = ref.ReductionType
 GPU, CPU = ref.ExecutionMode.GPU, ref.ExecutionMode.CPU
@@ -74,9 +74,9 @@ def spec(glyph, rtype):
 
 def run(pkg, mode, specs, clouds, staged=False, **cfg):
     p = pkg.Pipeline.create(pkg.PipelineConfig(
-        grid=cfg.pop("gc", None) or grid(), reductions=specs,
-        exec_mode=mode, **cfg))
-    for c in clouds:
+        grid=like(pkg, cfg.pop("gc", None) or grid()),
+        reductions=like(pkg, specs), exec_mode=like(pkg, mode), **cfg))
+    for c in like(pkg, clouds):
         p.ingest(p.stage(c) if staged else c)
     p.finalize()
     return p, [p.result().band_array(i).copy() for i in range(len(specs))]
@@ -97,9 +97,10 @@ def test_slice_matches_jax_and_oracle(glyph, rtype, staged):
     specs = [spec(glyph, rtype)]
     clouds = [cloud(seed=1), cloud(seed=2)]
     p = port.Pipeline.create(port.PipelineConfig(
-        grid=grid(), reductions=specs, exec_mode=GPU))
+        grid=like(port, grid()), reductions=like(port, specs),
+        exec_mode=port.ExecutionMode.GPU))
     assert isinstance(p._engine, TorchEngine)
-    (chunk,) = p.stage(clouds[0]).per_spec[0]
+    (chunk,) = p.stage(like(port, clouds[0])).per_spec[0]
     assert chunk.kind == GLYPHS[glyph][1]
     _, got = run(port, GPU, specs, clouds, staged)
     _, jax_bands = run(ref, GPU, specs, clouds, staged)
@@ -130,12 +131,13 @@ def test_carried_state_continues_like_jax(glyph):
     fields = [np.asarray(f).copy() for f in j._engine.fetch_state(0)]
     assert fields[1].any()
     t = port.Pipeline.create(port.PipelineConfig(
-        grid=grid(), reductions=specs, exec_mode=GPU))
+        grid=like(port, grid()), reductions=like(port, specs),
+        exec_mode=port.ExecutionMode.GPU))
     t._engine.load_state(0, fields)
     for a, b in zip(t._engine.fetch_state(0), fields):
         assert np.array_equal(a, b)
-    for p in (j, t):
-        p.ingest(c2)
+    for pkg, p in ((ref, j), (port, t)):
+        p.ingest(like(pkg, c2))
         p.finalize()
     assert_close(t.result().band_array(0), j.result().band_array(0))
 
@@ -150,11 +152,12 @@ def test_resume_across_packages(glyph, direction, tmp_path):
     state_dir = str(tmp_path / "state")
     a, _ = run(first, GPU, specs, [c1], state_dir=state_dir)
     b = second.Pipeline.create(second.PipelineConfig(
-        grid=grid(), reductions=specs, exec_mode=GPU, state_dir=state_dir))
+        grid=like(second, grid()), reductions=like(second, specs),
+        exec_mode=like(second, GPU), state_dir=state_dir))
     for i in range(len(specs)):
         for fa, fb in zip(a._engine.fetch_state(i), b._engine.fetch_state(i)):
             assert np.array_equal(np.asarray(fa), np.asarray(fb))
-    b.ingest(c2)
+    b.ingest(like(second, c2))
     b.finalize()
     _, oracle = run(ref, CPU, specs, [c1, c2])
     for i in range(len(specs)):
@@ -166,9 +169,9 @@ def test_checkpoint_holds_the_flushed_state(tmp_path):
     the band: the port's state exits are flushed as pcr_tpu's are."""
     specs = [spec("s4", RT.Average)]
     p = port.Pipeline.create(port.PipelineConfig(
-        grid=grid(), reductions=specs, exec_mode=GPU,
-        state_dir=str(tmp_path / "state")))
-    p.ingest(cloud(seed=8))
+        grid=like(port, grid()), reductions=like(port, specs),
+        exec_mode=port.ExecutionMode.GPU, state_dir=str(tmp_path / "state")))
+    p.ingest(like(port, cloud(seed=8)))
     eng = p._engine
     s0, s1 = eng._states[0]
     s0[5, 100], s1[5, 100] = 3e-7, 1e-7        # an untouched-tile residue
@@ -178,8 +181,8 @@ def test_checkpoint_holds_the_flushed_state(tmp_path):
     assert s1[90, 10] > 0                      # the state itself is kept
     p.finalize()
     q = port.Pipeline.create(port.PipelineConfig(
-        grid=grid(), reductions=specs, exec_mode=GPU,
-        state_dir=str(tmp_path / "state")))
+        grid=like(port, grid()), reductions=like(port, specs),
+        exec_mode=port.ExecutionMode.GPU, state_dir=str(tmp_path / "state")))
     for a, b in zip(q._engine.fetch_state(0), fetched):
         assert np.array_equal(a, b)
     assert np.isnan(p.result().band_array(0)[90, 10])

@@ -15,11 +15,13 @@ import pytest
 import torch
 
 import pcr_tpu as ref
+import pcr_tpu_torch as port_pkg
 from conftest import make_grid_config
 from pcr_tpu.engine.tpu_backend import PALLAS_BLOCK, TpuEngine
 from pcr_tpu_torch.engine import _build, kernels
 from pcr_tpu_torch.engine.torch_backend import (TorchEngine, layout_tiles,
                                                 layout_tiles_numpy)
+from test_torch_pipeline import like
 
 RT = ref.ReductionType
 TOL = 1e-5
@@ -103,7 +105,9 @@ def test_port_layout_is_the_jax_layout_without_ladder_padding(monkeypatch):
     pts = points(gc, n=20000)
     _, _, jparams, jbids, _, _ = jax_staged(monkeypatch, gc, RT.Average, pts)
     spec = ref.ReductionSpec(value_channel="v", type=RT.Average)
-    port = TorchEngine(gc, [(spec, ref.get_reduction_info(RT.Average))],
+    port = TorchEngine(like(port_pkg, gc),
+                       [(like(port_pkg, spec),
+                         port_pkg.get_reduction_info(RT.Average))],
                        torch.device("cpu"))
     col, row, valid, values, weights = pts
     (st,) = port.prepare_point(0, None, valid, values, weights,
@@ -288,3 +292,139 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path,
     assert os.path.exists(out) != broken
     assert left == sorted([os.path.basename(out)] * (not broken)
                           + [os.path.basename(out)[:-3] + ".log"])
+
+
+def plan_bids(pattern, seed=0):
+    """Ascending bids: long runs (few tiles), short runs (many tiles), one
+    run, and runs with skipped ids (-1 and past nb_total = 40)."""
+    rng = np.random.default_rng(seed)
+    if pattern == "few_tiles":
+        return np.repeat([0, 1], [613, 611]).astype(np.int32)
+    if pattern == "many_tiles":
+        return np.repeat(np.arange(40), rng.integers(1, 9, 40)).astype(
+            np.int32)
+    if pattern == "one_run":
+        return np.full(97, 3, np.int32)
+    return np.sort(rng.integers(-1, 42, 300)).astype(np.int32)
+
+
+@pytest.mark.parametrize("group", [None, 1, 3, 16])
+@pytest.mark.parametrize("pattern", ["few_tiles", "many_tiles", "one_run",
+                                     "skipped"])
+def test_k1_plan_covers_every_subchunk_once_within_its_run(pattern, group):
+    bids = plan_bids(pattern)
+    nsub, nb_total = len(bids), 40
+    g = group or kernels.k1_group_size(nsub)
+    first, end, slot = kernels.k1_plan(bids, nb_total, group)
+    covered = np.zeros(nsub, int)
+    for a, b in zip(first, end):
+        covered[a:b] += 1
+        assert (bids[a:b] == bids[a]).all()          # never crosses a run
+        assert b - a <= g and (a % g == 0 or bids[a - 1] != bids[a])
+    live = (bids >= 0) & (bids < nb_total)
+    assert np.array_equal(covered, live.astype(int))  # each live one once
+    runs = {}
+    for a, s in zip(first, slot):
+        runs.setdefault(int(bids[a]), []).append(int(s))
+    for slots in runs.values():                       # -1 iff a run's only
+        assert (slots == [-1]) or (len(slots) > 1 and min(slots) >= 0)
+    used = slot[slot >= 0]
+    assert len(set(used)) == len(used) and (used < 2 * -(-nsub // g)).all()
+
+
+def test_k1_plan_depends_on_bids_alone():
+    """Two layouts with other entries but the same tile runs give the same
+    bids and so the same plan; the group size follows nsub alone."""
+    gc = like(port_pkg, make_grid_config(w=300.0, h=300.0))
+    spec = port_pkg.ReductionSpec(value_channel="v", type=RT.Sum)
+    eng = TorchEngine(gc, [(spec, port_pkg.get_reduction_info(RT.Sum))],
+                      torch.device("cpu"))
+    counts = [20_000, 15_000, 5_000]             # points per row block
+    layouts = []
+    for seed in (5, 6):
+        rng = np.random.default_rng(seed)
+        n = sum(counts)
+        row = np.repeat([0, 128, 256], counts) + rng.integers(0, 44, n)
+        col = rng.integers(0, 256, n)
+        (st,) = eng.prepare_point(
+            0, None, np.ones(n, bool), rng.normal(size=n).astype(np.float32),
+            col=col.astype(np.int32), row=row.astype(np.int32))
+        layouts.append(st)
+    a, b = layouts
+    assert not torch.equal(a.params, b.params)
+    assert torch.equal(a.bids, b.bids)
+    for x, y in zip(kernels.k1_plan(a.bids.numpy(), 6),
+                    kernels.k1_plan(b.bids.numpy(), 6)):
+        assert np.array_equal(x, y)
+    assert kernels.k1_group_size(1) == kernels.GROUP_MIN
+    assert kernels.k1_group_size(100 * kernels.GROUP_TARGET) == 100
+
+
+def grouped_splat(states, params, bids, th, wt, with_f1, group):
+    """K1's two passes as the kernel runs them, on the CPU: each group sums
+    its sub-chunks into the state (a run's only group) or into its zeroed
+    scratch slot; then, for each run with more than one group, the block
+    where it starts adds its slots in group order."""
+    h_pad, w_pad = states[0].shape
+    ncb, nsub = w_pad // wt, len(bids)
+    nb_total = h_pad // th * ncb
+    scratch = np.full((2 * -(-nsub // group), len(states), th, wt), np.nan,
+                      np.float32)
+    for a, b, slot in zip(*kernels.k1_plan(bids, nb_total, group)):
+        r0, c0 = bids[a] // ncb * th, bids[a] % ncb * wt
+        if slot >= 0:
+            scratch[slot] = 0
+            tile = [scratch[slot, f] for f in range(len(states))]
+        else:
+            tile = [s[r0:r0 + th, c0:c0 + wt] for s in states]
+        sub = params[a:b].copy()
+        sub[:, 0] -= c0
+        sub[:, 1] -= r0
+        got = reference_splat([t.copy() for t in tile], sub,
+                              np.zeros(b - a, np.int32), th, wt, with_f1)
+        for t, g in zip(tile, got):
+            t[...] = g
+    for blk in range(-(-nsub // group)):
+        first, last = blk * group, min(blk * group + group, nsub) - 1
+        bid = bids[last]
+        if (not 0 <= bid < nb_total or last + 1 >= nsub
+                or bids[last + 1] != bid
+                or (first > 0 and bids[first - 1] == bid)):
+            continue
+        run_end = np.searchsorted(bids, bid, side="right")
+        slots = [2 * blk + int(bids[first] != bid)] + [
+            2 * bb for bb in range(blk + 1, (run_end - 1) // group + 1)]
+        acc = scratch[slots[0]].copy()
+        for s in slots[1:]:
+            acc += scratch[s]
+        r0, c0 = bid // ncb * th, bid % ncb * wt
+        for f, st in enumerate(states):
+            st[r0:r0 + th, c0:c0 + wt] += acc[f]
+    return states
+
+
+@pytest.mark.parametrize("group", [1, 2, 5])
+@pytest.mark.parametrize("nf,with_f1", [(1, False), (2, False), (2, True)])
+def test_k1_grouped_passes_match_the_contract(nf, with_f1, group):
+    """The kernel's grouping and merge walk, run on the CPU, give the
+    contract's sums (to float32 order) for any group size."""
+    rng = np.random.default_rng(nf + group)
+    th, wt, block, nb_total = 8, 16, 64, 6
+    bids = np.sort(np.r_[rng.integers(0, nb_total, 30), [-1, nb_total]]
+                   ).astype(np.int32)
+    nseg = 3 + int(with_f1)
+    params = np.empty((len(bids), nseg, block), np.int32)
+    for j, bid in enumerate(bids):
+        tile = min(max(bid, 0), nb_total - 1)
+        r0, c0 = tile // 3 * th, tile % 3 * wt
+        params[j, 0] = c0 + rng.integers(-2, wt + 2, block)
+        params[j, 1] = r0 + rng.integers(-2, th + 2, block)
+    params[:, 2:] = rng.normal(size=(len(bids), nseg - 2, block)).astype(
+        np.float32).view(np.int32)
+    states = [rng.normal(size=(2 * th, 3 * wt)).astype(np.float32)
+              for _ in range(nf)]
+    want = reference_splat(states, params, bids, th, wt, with_f1)
+    got = grouped_splat([s.copy() for s in states], params, bids, th, wt,
+                        with_f1, group)
+    for g, w in zip(got, want):
+        assert_close(g, w)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import pcr_tpu as ref
+import pcr_tpu_torch as port_pkg
 from conftest import make_grid_config
 from pcr_tpu.engine import routing
 from pcr_tpu.engine.pallas_kernels import rect_col_tile
@@ -29,6 +30,7 @@ from pcr_tpu.engine.tpu_backend import PALLAS_BLOCK, TpuEngine
 from pcr_tpu_torch.engine import line_kernels as lk
 from pcr_tpu_torch.engine.torch_backend import TorchEngine
 from pcr_tpu_torch.probes import rot_expand as k6
+from test_torch_pipeline import like
 
 RT = ref.ReductionType
 TOL = 1e-5
@@ -67,7 +69,10 @@ def engines(monkeypatch, gc, rtype):
     spec = ref.line_splat_spec("v")
     spec.type = rtype
     plans = [(spec, ref.get_reduction_info(rtype))]
-    return TpuEngine(gc, plans), TorchEngine(gc, plans, torch.device("cpu"))
+    return TpuEngine(gc, plans), TorchEngine(
+        like(port_pkg, gc), [(like(port_pkg, spec),
+                              port_pkg.get_reduction_info(rtype))],
+        torch.device("cpu"))
 
 
 def jax_rect(jeng, inp):
@@ -136,7 +141,7 @@ def test_port_layout_is_the_jax_layout_without_ladder_padding(
     jeng, port = engines(monkeypatch, gc, RT.Sum)
     inp = line_inputs(gc, direction, n=6000, channels=channels)
     _, jp, jb, _ = jax_rect(jeng, inp)
-    (st,) = port.prepare_line(0, *inp)
+    (st,) = port.prepare_line(0, *like(port_pkg, inp))
     assert st.kind == "rect" and st.npoints == len(inp[0].ix0)
     pp, pb = st.params.numpy(), st.bids.numpy()
     keep = np.isin(jb, pb)
@@ -152,7 +157,7 @@ def test_count_layout_adds_one_per_cell(monkeypatch):
     weight; the JAX rect path stages the value there)."""
     gc = make_grid_config(w=200.0, h=150.0, tile=64)
     _, port = engines(monkeypatch, gc, RT.Count)
-    (st,) = port.prepare_line(0, *line_inputs(gc, 0.7))
+    (st,) = port.prepare_line(0, *like(port_pkg, line_inputs(gc, 0.7)))
     p = st.params.numpy()
     live = p[:, 0] <= p[:, 1]
     assert live.any()
@@ -219,7 +224,7 @@ def test_plain_budget_splits_keep_entry_order(monkeypatch):
     chunks follow entry order."""
     gc = make_grid_config(w=200.0, h=150.0, tile=64)
     _, port = engines(monkeypatch, gc, RT.Average)
-    (st,) = port.prepare_line(0, *line_inputs(gc, 0.7))
+    (st,) = port.prepare_line(0, *like(port_pkg, line_inputs(gc, 0.7)))
     whole = [torch.zeros_like(s) for s in port._states[0]]
     lk.rect_splat(whole, st.params, st.bids, th=st.th, wt=st.wt)
     monkeypatch.setitem(lk._PLAIN_BUDGET, "cpu", 7)
@@ -235,7 +240,7 @@ def test_dead_runs_are_skipped(monkeypatch):
     entries hold."""
     gc = make_grid_config(w=200.0, h=150.0, tile=64)
     _, port = engines(monkeypatch, gc, RT.Average)
-    (st,) = port.prepare_line(0, *line_inputs(gc, 0.0))
+    (st,) = port.prepare_line(0, *like(port_pkg, line_inputs(gc, 0.0)))
     nb_total = (port.H_pad // st.th) * (port.W_state // st.wt)
     want = [torch.zeros_like(s) for s in port._states[0]]
     lk.rect_splat(want, st.params, st.bids, th=st.th, wt=st.wt)
@@ -255,7 +260,8 @@ def test_lines_with_no_run_stage_only_padding(monkeypatch):
     gc = make_grid_config(w=200.0, h=150.0, tile=64)
     _, port = engines(monkeypatch, gc, RT.Average)
     lp, valid, values, col, row = line_inputs(gc, 0.7, n=50)
-    (st,) = port.prepare_line(0, lp, np.zeros_like(valid), values, col, row)
+    (st,) = port.prepare_line(0, like(port_pkg, lp), np.zeros_like(valid),
+                              values, col, row)
     assert st.params.shape[0] == 1
     assert (st.params[0, 0] == 1).all() and (st.params[0, 1] == 0).all()
     port.commit(0, [st])

@@ -25,7 +25,7 @@ import pcr_tpu as ref
 import pcr_tpu_torch as port
 from conftest import make_grid_config
 from pcr_tpu_torch.engine.torch_backend import TorchEngine
-from test_torch_pipeline import NO_JAX_QUICKSTART, REPO
+from test_torch_pipeline import NO_JAX_QUICKSTART, REPO, like
 
 RT = ref.ReductionType
 GPU, CPU = ref.ExecutionMode.GPU, ref.ExecutionMode.CPU
@@ -72,9 +72,10 @@ def spec(glyph, rtype, **kw):
 
 def run(pkg, mode, specs, clouds, staged=False, **cfg):
     p = pkg.Pipeline.create(pkg.PipelineConfig(
-        grid=cfg.pop("gc", None) or grid(),
-        reductions=copy.deepcopy(specs), exec_mode=mode, **cfg))
-    for c in clouds:
+        grid=like(pkg, cfg.pop("gc", None) or grid()),
+        reductions=like(pkg, copy.deepcopy(specs)),
+        exec_mode=like(pkg, mode), **cfg))
+    for c in like(pkg, clouds):
         p.ingest(p.stage(c) if staged else c)
     p.finalize()
     return p, [p.result().band_array(i).copy() for i in range(len(specs))]
@@ -90,9 +91,10 @@ def assert_close(got, want):
 
 def port_chunk(specs, c):
     p = port.Pipeline.create(port.PipelineConfig(
-        grid=grid(), reductions=copy.deepcopy(specs), exec_mode=GPU))
+        grid=like(port, grid()), reductions=like(port, specs),
+        exec_mode=port.ExecutionMode.GPU))
     assert isinstance(p._engine, TorchEngine)
-    (chunk,) = p.stage(c).per_spec[0]
+    (chunk,) = p.stage(like(port, c)).per_spec[0]
     return chunk
 
 
@@ -166,12 +168,13 @@ def test_carried_state_continues_like_jax(rtype):
     fields = [np.asarray(f).copy() for f in j._engine.fetch_state(0)]
     assert fields[0].any()
     t = port.Pipeline.create(port.PipelineConfig(
-        grid=grid(), reductions=copy.deepcopy(specs), exec_mode=GPU))
+        grid=like(port, grid()), reductions=like(port, specs),
+        exec_mode=port.ExecutionMode.GPU))
     t._engine.load_state(0, fields)
     for a, b in zip(t._engine.fetch_state(0), fields):
         assert np.array_equal(a, b)
-    for p in (j, t):
-        p.ingest(c2)
+    for pkg, p in ((ref, j), (port, t)):
+        p.ingest(like(pkg, c2))
         p.finalize()
     assert_close(t.result().band_array(0), j.result().band_array(0))
 
@@ -186,12 +189,13 @@ def test_resume_across_packages(direction, tmp_path):
     a, _ = run(first, GPU, specs, [c1], state_dir=state_dir,
                output_path=str(tmp_path / "a.tif"))
     b = second.Pipeline.create(second.PipelineConfig(
-        grid=grid(), reductions=copy.deepcopy(specs), exec_mode=GPU,
-        state_dir=state_dir))
+        grid=like(second, grid()), reductions=like(second,
+                                                   copy.deepcopy(specs)),
+        exec_mode=like(second, GPU), state_dir=state_dir))
     for i in range(len(specs)):
         for fa, fb in zip(a._engine.fetch_state(i), b._engine.fetch_state(i)):
             assert np.array_equal(np.asarray(fa), np.asarray(fb))
-    b.ingest(c2)
+    b.ingest(like(second, c2))
     b.finalize()
     _, oracle = run(ref, CPU, specs, [c1, c2])
     for i in range(len(specs)):

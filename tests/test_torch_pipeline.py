@@ -7,8 +7,14 @@ torch-CPU (PCR_TORCH_DEVICE=cpu, where kernel K1 runs its plain version).
 Sum-family bands agree at atol = rtol = 1e-5 (the engines add the same
 float32 values in different orders) with an exact NaN footprint; Max, Min,
 MostRecent, PriorityMerge and Median are exact.
+
+Each package is handed inputs of its own types: the helpers build them from
+pcr_tpu's, and `like` rebuilds them from the port's classes.
 """
 
+import dataclasses
+import enum
+import importlib
 import os
 import subprocess
 import sys
@@ -38,6 +44,35 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def devices(monkeypatch):
     monkeypatch.setenv("PCR_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("PCR_PALLAS", "interpret")
+
+
+def like(pkg, obj):
+    """`obj`, built from pcr_tpu's types, rebuilt from `pkg`'s own classes
+    (the class of the same name in the same module path under `pkg`):
+    enums, dataclasses (GridConfig, ReductionSpec, GlyphSpec, FilterSpec,
+    routing's parameter records, ...), point clouds, and lists of them."""
+    if pkg is ref or obj is None:
+        return obj
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(like(pkg, o) for o in obj)
+    mod = type(obj).__module__
+    if not mod.startswith("pcr_tpu."):
+        return obj
+    cls = getattr(importlib.import_module(pkg.__name__ + mod[len("pcr_tpu"):]),
+                  type(obj).__name__)
+    if isinstance(obj, enum.Enum):
+        return cls(obj.value)
+    if isinstance(obj, ref.PointCloud):
+        c = cls.create(obj.count())
+        c.set_x_array(obj.x_array())
+        c.set_y_array(obj.y_array())
+        for name in obj.channel_names():
+            c.add_channel(name, like(pkg, obj.channel(name).dtype))
+            c.set_channel_array(name, obj.channel_array(name))
+        c.set_crs(like(pkg, obj.crs()))
+        return c.to(like(pkg, obj.location()))
+    return cls(**{f.name: like(pkg, getattr(obj, f.name))
+                  for f in dataclasses.fields(obj) if f.init})
 
 
 def grid():
@@ -76,13 +111,13 @@ def spec(rtype):
 
 def make(pkg, mode, specs, **cfg):
     return pkg.Pipeline.create(pkg.PipelineConfig(
-        grid=cfg.pop("gc", None) or grid(), reductions=specs, exec_mode=mode,
-        **cfg))
+        grid=like(pkg, cfg.pop("gc", None) or grid()),
+        reductions=like(pkg, specs), exec_mode=like(pkg, mode), **cfg))
 
 
 def run(pkg, mode, specs, clouds, staged=False, **cfg):
     p = make(pkg, mode, specs, **cfg)
-    for c in clouds:
+    for c in like(pkg, clouds):
         p.ingest(p.stage(c) if staged else c)
     p.finalize()
     return p, [p.result().band_array(i).copy() for i in range(len(specs))]
@@ -160,7 +195,7 @@ def test_resume_across_packages(first, second, tmp_path):
         for fa, fb in zip(a._engine.fetch_state(i), b._engine.fetch_state(i)):
             assert np.array_equal(np.asarray(fa), np.asarray(fb),
                                   equal_nan=True)
-    b.ingest(c2)
+    b.ingest(like(second, c2))
     b.finalize()
     _, oracle = run(ref, CPU, specs, [c1, c2])
     assert_bands([b.result().band_array(i) for i in range(len(specs))],
@@ -184,8 +219,8 @@ def test_carried_state_continues_like_jax(rtype):
     t._engine.load_state(0, fields)
     for a, b in zip(t._engine.fetch_state(0), fields):
         assert np.array_equal(a, b, equal_nan=True)
-    for p in (j, t):
-        p.ingest(c2)
+    for pkg, p in ((ref, j), (port, t)):
+        p.ingest(like(pkg, c2))
         p.finalize()
     assert_bands([t.result().band_array(0)], [j.result().band_array(0)],
                  specs)
@@ -205,9 +240,9 @@ def test_port_reruns_are_bit_identical():
 def test_host_ingest_takes_the_k1_layout():
     """The keyword wire_cheap (host-sourced ingest) changes nothing: the
     port has no separate lossy-link wire."""
-    gc = grid()
-    eng = TorchEngine(gc, [(spec(RT.Average),
-                            ref.get_reduction_info(RT.Average))],
+    gc = like(port, grid())
+    eng = TorchEngine(gc, [(like(port, spec(RT.Average)),
+                            port.get_reduction_info(RT.Average))],
                       torch.device("cpu"))
     rng = np.random.default_rng(8)
     col = rng.integers(0, gc.width, 500).astype(np.int32)
@@ -222,11 +257,12 @@ def test_host_ingest_takes_the_k1_layout():
 
 
 def _register_rms():
-    ref.register_custom_reduction(
-        state_floats=2, identity=(0.0, 0.0), scatter_kind="sum",
-        fields=lambda v, w, t: [v * v, v * 0 + 1.0],
-        merge_arrays=lambda a, b: [a[0] + b[0], a[1] + b[1]],
-        finalize_arrays=lambda f: (f[0] / f[1]) ** 0.5)
+    for pkg in (ref, port):     # each package keeps its own registry
+        pkg.register_custom_reduction(
+            state_floats=2, identity=(0.0, 0.0), scatter_kind="sum",
+            fields=lambda v, w, t: [v * v, v * 0 + 1.0],
+            merge_arrays=lambda a, b: [a[0] + b[0], a[1] + b[1]],
+            finalize_arrays=lambda f: (f[0] / f[1]) ** 0.5)
 
 
 @pytest.mark.parametrize("case", ["custom", "gpu_memory_budget", "mesh"])
@@ -240,44 +276,55 @@ def test_unported_features_refuse_on_the_device(case):
     else:
         cfg["mesh_sp"] = 2
     try:
-        with pytest.raises(ref.PcrError, match="not yet ported") as e:
+        with pytest.raises(port.PcrError, match="not yet ported") as e:
             make(port, GPU, specs, **cfg)
-        assert e.value.status.code == ref.StatusCode.NotImplemented
+        assert e.value.status.code == port.StatusCode.NotImplemented
         # the CPU backend runs it as pcr_tpu does
         _, got = run(port, CPU, specs, [cloud(seed=9)], **cfg)
         _, want = run(ref, CPU, specs, [cloud(seed=9)], **cfg)
         assert np.array_equal(got[0], want[0], equal_nan=True)
     finally:
         if case == "custom":
-            ref.unregister_reduction(RT.Custom)
+            for pkg in (ref, port):
+                pkg.unregister_reduction(RT.Custom)
 
 
 @pytest.mark.parametrize("case", ["strict", "fallback", "no_fallback",
-                                  "auto"])
+                                  "auto", "default"])
 def test_fallback_ladder_without_a_card(case, monkeypatch):
+    """Without a card the device modes raise CudaError; the CPU runs only
+    when the caller asks for it (here: gpu_fallback_to_cpu=True, with its
+    warning). "default" is a PipelineConfig with nothing but a grid and a
+    reduction."""
     monkeypatch.delenv("PCR_TORCH_DEVICE")
     monkeypatch.setattr(port_pipeline, "cuda_device_available",
                         lambda: False)
     specs = [spec(RT.Average)]
+    if case == "default":
+        with pytest.raises(port.PcrError) as e:
+            port.Pipeline.create(port.PipelineConfig(
+                grid=like(port, grid()), reductions=like(port, specs)))
+        assert e.value.status.code == port.StatusCode.CudaError
+        return
     cfg = dict(gpu_require_strict=case == "strict",
                gpu_fallback_to_cpu=case == "fallback")
-    if case in ("strict", "no_fallback"):
-        with pytest.raises(ref.PcrError) as e:
-            make(port, GPU, specs, **cfg)
-        assert e.value.status.code == ref.StatusCode.CudaError
+    mode = ref.ExecutionMode.Auto if case == "auto" else GPU
+    if case != "fallback":
+        with pytest.raises(port.PcrError) as e:
+            make(port, mode, specs, **cfg)
+        assert e.value.status.code == port.StatusCode.CudaError
         return
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
-        p = make(port, ref.ExecutionMode.Auto if case == "auto" else GPU,
-                 specs, **cfg)
+        p = make(port, mode, specs, **cfg)
     assert p._backend == "cpu" and p._engine is None
-    assert any("falling back" in str(w.message) for w in seen) == (
-        case == "fallback")
+    assert any("falling back" in str(w.message) for w in seen)
 
 
 NO_JAX_QUICKSTART = textwrap.dedent("""
     import os, sys, tempfile
-    sys.modules["jax"] = None          # any jax import now raises
+    for name in ("jax", "pcr_tpu", "pcr"):
+        sys.modules[name] = None       # any import of them now raises
     import numpy as np
     import pcr_tpu_torch as pcr
     from pcr_tpu_torch.engine.torch_backend import TorchEngine
@@ -321,7 +368,7 @@ NO_JAX_QUICKSTART = textwrap.dedent("""
     g, c = bands[pcr.ExecutionMode.GPU], bands[pcr.ExecutionMode.CPU]
     assert np.allclose(g[0], c[0], rtol=1e-5, atol=1e-5, equal_nan=True)
     assert np.array_equal(g[1], c[1], equal_nan=True)
-    assert sys.modules["jax"] is None
+    assert all(sys.modules[m] is None for m in ("jax", "pcr_tpu", "pcr"))
     print("ok")
 """)
 
