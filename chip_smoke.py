@@ -16,8 +16,8 @@ Phases:
       same touched footprint, bit-identical kernel reruns, and both times
       from CUDA events after a warm-up; beside them the two one-call
       rivals over the precomputed live cells (index_add_, atomic, and
-      index_put_(accumulate=True) under deterministic algorithms), K1's
-      byte bound, and K1's time at other group sizes;
+      index_put_(accumulate=True) under deterministic algorithms) and
+      K1's byte bound;
   (c) the main path, the bench's primary harness: 160x160 grid, 1 m cells,
       EPSG:32610, 5M points, Average, state_dir + output_path, stage ->
       ingest(staged) -> finalize; band against the numpy CPU oracle, the
@@ -203,8 +203,7 @@ def window_cells(torch, bids, th, wt, ncb, x0, x1, y0, y1):
 
 def k1_case(torch, kernels, eng, staged, with_f1, label, reps):
     """K1 against its plain version on one staged layout, then against the
-    one-call rivals, its bound and other group sizes. Returns a dict of
-    the row's numbers."""
+    one-call rivals and its bound. Returns a dict of the row's numbers."""
     p, b = staged.params, staged.bids
     shape = eng._states[0][0].shape
     kw = dict(th=kernels.TH, wt=eng.WT, with_f1=with_f1)
@@ -268,25 +267,8 @@ def k1_case(torch, kernels, eng, staged, with_f1, label, reps):
         print(f"(b) K1 {label}: {name} over {cells.numel()} live cells "
               f"rival_ms={r_ms!r} kernel_ms={k_ms!r} (turns: {t})")
     bms, by = bound(io_bytes(p, b, scratch), live.sum().item() * 2)
-    groups = {}
-    for g in (4, 8, 16, 32, 64):
-        groups[g], _, _ = time_turns(
-            torch, lambda: kernels.sorted_splat_point(scratch, p, b, group=g,
-                                                      **kw),
-            lambda: None, reps=reps, plain_reps=1)
-    print(f"(b) K1 {label}: bound_ms={bms!r} ({by}) default group="
-          f"{kernels.k1_group_size(p.shape[0])}; kernel_ms by group size "
-          f"{groups}")
-    # where K1's time goes: its two passes' device time (torch.profiler)
-    act = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        for _ in range(5):
-            kernels.sorted_splat_point(scratch, p, b, **kw)
-        torch.cuda.synchronize()
-    passes = {ev.key.split("<")[0].split("::")[-1]:
-              ev.device_time_total / ev.count for ev in prof.key_averages()
-              if ev.device_time_total > 0 and "k1_" in ev.key}
-    print(f"(b) K1 {label}: device us per launch by pass {passes}")
+    print(f"(b) K1 {label}: bound_ms={bms!r} ({by}) group="
+          f"{kernels.k1_group_size(p.shape[0])}")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=rivals["index_add_"],
                 rival_ms=rivals["index_put_ deterministic"])

@@ -114,14 +114,10 @@ class StatusCode(enum.IntEnum):
     Ok = 0
     InvalidArgument = 1
     OutOfMemory = 2
-    CudaError = 3      # the reference's name; pcr_tpu calls it TpuError
+    CudaError = 3
     IoError = 4
     CrsError = 5
     NotImplemented = 6
-
-
-# Compatibility alias: pcr_tpu's name for the same code.
-StatusCode.TpuError = StatusCode.CudaError  # type: ignore[attr-defined]
 
 
 @dataclass

@@ -9,7 +9,7 @@ ops unregistered, reduction_registry.cpp:183-185). Round 2 held the whole
 stream in host RAM (~12 B/point) — the one op that broke the streaming
 contract: a billion-point run with a Percentile spec would OOM the host.
 
-CollectStream caps resident memory at PCR_COLLECT_BUDGET (default 256 MB):
+CollectStream caps resident memory at COLLECT_BUDGET (256 MB) by default:
 when the in-RAM buffer exceeds the budget, it is sorted by cell and
 written to disk as one run (cells int64 + values float32, raw .npy).
 Finalize merges the sorted runs cell-range by cell-range — each range is
@@ -32,14 +32,15 @@ import numpy as np
 
 from ..ops.reduction import compute_percentile_band
 
-__all__ = ["CollectStream"]
+__all__ = ["COLLECT_BUDGET", "CollectStream"]
+
+COLLECT_BUDGET = 256 << 20   # bytes of (cell, value) pairs held in RAM
 
 
 class CollectStream:
     def __init__(self, budget_bytes: int | None = None,
                  spill_dir: str | None = None):
-        self._budget = budget_bytes or int(
-            os.environ.get("PCR_COLLECT_BUDGET", 256 << 20))
+        self._budget = budget_bytes or COLLECT_BUDGET
         self._spill_parent = spill_dir
         self._dir: str | None = None
         self._runs: list[tuple[str, str]] = []

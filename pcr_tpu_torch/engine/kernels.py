@@ -22,7 +22,7 @@ header comment has the design. In short:
   * What the design does about it: it gives up the TPU's one-hot matmul
     (the TPU has no scatter) and its float-atomic alternative (reruns would
     differ in the last bits). Each tile's run is cut into groups of
-    consecutive sub-chunks (`k1_plan`, a function of `bids` alone); a CTA
+    consecutive sub-chunks (a function of `bids` and nsub alone); a CTA
     folds a group into its slice of the tile held in shared memory
     (`slice_rows` rows), each cell owned by one warp, which sums the
     cell's terms in an order fixed by the input, so reruns are
@@ -38,15 +38,13 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import _build
 from .tiling import col_tile, padded_width  # noqa: F401
 
 __all__ = ["BLOCK", "TH", "col_tile", "padded_width", "k1_group_size",
-           "k1_plan", "slice_rows", "sorted_splat_point",
-           "sorted_splat_point_plain"]
+           "slice_rows", "sorted_splat_point", "sorted_splat_point_plain"]
 
 TH = 128        # tile rows (the TPU's GAUSS_ROW_BLOCK)
 BLOCK = 2048    # entries per sub-chunk (the TPU's PALLAS_BLOCK)
@@ -96,31 +94,6 @@ def slice_rows(th: int, wt: int, cell_bytes: int) -> int:
                          f"row slice that fits {TILE_BYTES} B of shared "
                          f"memory")
     return rs
-
-
-def k1_plan(bids, nb_total: int, group: int | None = None):
-    """The groups of K1's first pass, as the kernel forms them: a group
-    starts at each run's first sub-chunk and at each sub-chunk whose index
-    is a multiple of `group` (k1_group_size(nsub) by default), and ends
-    before the next start. Returns int64 arrays (first, end, slot), one
-    entry per group of a live run (bid in [0, nb_total)), in sub-chunk
-    order; `slot` is -1 for a run's only group (it writes the state), else
-    the scratch tile it writes: 2b for the group starting at block b's
-    first sub-chunk (b = first // group), 2b + 1 for one starting inside
-    block b. A function of `bids` (and `group`) alone."""
-    bids = np.asarray(bids, np.int64)
-    nsub = len(bids)
-    group = group or k1_group_size(nsub)
-    j = np.arange(nsub)
-    run_start = np.ones(nsub, bool)
-    run_start[1:] = bids[1:] != bids[:-1]
-    first = np.flatnonzero(run_start | (j % group == 0))
-    end = np.append(first[1:], nsub)
-    run_end = np.append(run_start[1:], True)[end - 1]   # last of its run
-    alone = run_start[first] & run_end
-    slot = np.where(alone, -1, 2 * (first // group) + (first % group != 0))
-    keep = (bids[first] >= 0) & (bids[first] < nb_total)
-    return first[keep], end[keep], slot[keep]
 
 
 def _check(states, params, bids, th: int, wt: int, with_f1: bool) -> None:
@@ -174,7 +147,9 @@ def sorted_splat_point(states, params: torch.Tensor, bids: torch.Tensor, *,
     group = int(group or k1_group_size(nsub))
     nf = len(states)
     count16 = nf == 2 and not with_f1 and group <= COUNT16_GROUP_MAX
-    # two scratch tiles per block of `group` sub-chunks (see k1_plan)
+    # two scratch tiles per block of `group` sub-chunks (slots 2b and
+    # 2b + 1, see the CUDA source): at the default group, at most
+    # 2 * GROUP_TARGET tiles a field (34.6 MB of 128 x 256 float32 tiles)
     scratch = torch.empty(2 * -(-nsub // group) * len(states) * th * wt,
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -40,14 +40,21 @@ Differences from the reference, by design (as in pcr_tpu):
     `red{i}_{type}` — the reference writes all reductions' tiles into one
     directory with colliding filenames (pipeline.cpp:236 +
     tile_state_io.cpp:197-210), which corrupts multi-reduction resume.
+  * Only a pipeline with a `state_dir` resumes state or writes it. Without
+    one, CPU out-of-core tiles spill into a private temporary directory,
+    removed with the pipeline; pcr_tpu shares one fixed directory between
+    all such pipelines and resumes whatever an earlier run left there.
 """
 
 from __future__ import annotations
 
 import enum
 import os
+import shutil
+import tempfile
 import time
 import warnings
+import weakref
 from dataclasses import dataclass, field as dc_field
 
 import numpy as np
@@ -75,6 +82,8 @@ __all__ = ["ExecutionMode", "ReductionSpec", "PipelineConfig",
            "ProgressInfo", "StagedCloud", "Pipeline"]
 
 _DEVICE = "torch"   # the backend tag of the device path
+_STREAM_MIN_BYTES = 2 << 20    # with an output file, stream bands this big
+_STRIP_TARGET_BYTES = 2 << 20  # a streamed finalize's row strip
 
 
 class ExecutionMode(enum.IntEnum):
@@ -189,6 +198,7 @@ class Pipeline:
         self._collect = {}                # order-statistics specs: spec idx
                                           #   -> CollectStream (spill-backed)
         self._tiled = False
+        self._spill_root = None           # tiled without state_dir: temp dir
         self._engine = None               # torch mode: TorchEngine
         self._result: Grid | None = None
         self._finalized = False
@@ -285,6 +295,10 @@ class Pipeline:
             self._tiled = bool(budget and state_bytes > budget)
             if self._tiled:
                 from .tile_manager import TileManager, TileManagerConfig
+                if not self.config.state_dir:
+                    self._spill_root = tempfile.mkdtemp(prefix="pcr_tiles_")
+                    weakref.finalize(self, shutil.rmtree, self._spill_root,
+                                     True)
                 for i, (spec, info) in enumerate(self._plans):
                     self._managers.append(TileManager.create(
                         TileManagerConfig(
@@ -312,7 +326,7 @@ class Pipeline:
     # -- state persistence ------------------------------------------------------
 
     def _state_dir_for(self, spec_idx: int) -> str:
-        base = self.config.state_dir or "/tmp/pcr_tiles"
+        base = self.config.state_dir or self._spill_root
         spec, _ = self._plans[spec_idx]
         return os.path.join(base, f"red{spec_idx}_{int(spec.type)}")
 
@@ -320,7 +334,10 @@ class Pipeline:
         """Resume: load any existing PCRT tile files (the reference's
         TileManager loads existing files implicitly on acquire,
         tile_manager.cpp:272-302 — the `resume` flag is declared but never
-        read there; we honor the same implicit behaviour)."""
+        read there; we honor the same implicit behaviour). Without a
+        state_dir there is nothing to resume."""
+        if not self.config.state_dir:
+            return
         cfg = self.config.grid
         if self._tiled:
             # TileManager loads existing PCRT files lazily on acquire;
@@ -770,9 +787,8 @@ class Pipeline:
                 worst = max(worst, planes * cfg.height * cfg.width * 4)
             # With an encoded output the streamed path wins earlier: the
             # LZW encode of strip k-1 overlaps the fetch of strip k.
-            stream_min = int(os.environ.get(
-                "PCR_STREAM_MIN_BYTES",
-                str(2 << 20) if self.config.output_path else str(pack_max)))
+            stream_min = (_STREAM_MIN_BYTES if self.config.output_path
+                          else pack_max)
             if worst <= min(pack_max, 2 * stream_min - 1):
                 return self._finalize_packed(need_state)
             return self._finalize_streamed(need_state)
@@ -926,7 +942,7 @@ class Pipeline:
     def _finalize_streamed(self, need_state: bool = False) -> None:
         """Large-grid device finalize with encode/checkpoint overlap: per
         reduction the engine finalizes on the device and hands back row
-        strips (~2 MB each, PCR_STRIP_TARGET_BYTES); a writer thread
+        strips (~2 MB each, _STRIP_TARGET_BYTES); a writer thread
         LZW-encodes strip k-1 into the GeoTIFF (and, with `need_state`,
         writes the PCRT checkpoint from the same strips) while the main
         thread masks strip k."""
@@ -942,8 +958,7 @@ class Pipeline:
             from ..io.geotiff import StreamingGeoTiffWriter
             writer = StreamingGeoTiffWriter(self.config.output_path, cfg,
                                             names, self._geotiff_opts())
-        target = int(os.environ.get("PCR_STRIP_TARGET_BYTES",
-                                    str(2 << 20)))
+        target = _STRIP_TARGET_BYTES
         # when every tile is touched the NaN prefill is fully overwritten
         # by _mask_strip — skip the extra full-band pass on the host
         all_touched = (len(self._touched_tiles)

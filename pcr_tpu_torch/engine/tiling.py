@@ -13,11 +13,10 @@ coefficients alike (the twin tests hold them bit for bit):
     `gauss_corr_offsets` (:513-566), and `rot_quadratic_segs`
     (TpuEngine._rot_quadratic_segs, :1772-1806) as a plain function.
 
-The environment knobs are the JAX package's (PCR_W_TILE, PCR_RECT_W_TILE,
-PCR_GAUSS_NARROW_MAX, PCR_GAUSS_TH, PCR_ROT_ROW_BLOCK, PCR_ROT_COL_TILE,
-PCR_ROTP_ROW_BLOCK, PCR_ROTP_RMAX, PCR_GAUSS_CORR_MAX), read where it reads
-them. The tile sizes were tuned on a TPU; ROADMAP Queue 1 re-derives them
-on Hopper.
+The sizes are constants here, at the JAX package's defaults; only the
+Line tile width reads its environment variable (PCR_RECT_W_TILE), which
+the card tests set to cover other K3 tiles. The sizes were tuned on a
+TPU; ROADMAP Queue 1 re-derives them on Hopper.
 """
 
 from __future__ import annotations
@@ -32,7 +31,9 @@ __all__ = ["W_TILE", "round_up", "col_tile", "padded_width",
            "ROTP_RMAX", "gauss_product_cutoff_bites", "gauss_corr_offsets",
            "rot_quadratic_segs"]
 
-W_TILE = int(os.environ.get("PCR_W_TILE", 256))  # column tile width
+W_TILE = 256             # column tile width
+GAUSS_NARROW_MAX = 65    # widest Gaussian window on the narrow tile
+GAUSS_CORR_MAX = 8       # most corrected cells before the dense kernel
 
 
 def round_up(x: int, m: int) -> int:
@@ -56,10 +57,10 @@ def rect_col_tile(W: int) -> int:
 
 
 def gauss_col_tile(W: int, rmax: int) -> int:
-    """Column tile for Gaussian splats, radius-adaptive: windows up to 65
-    cells wide (PCR_GAUSS_NARROW_MAX) take the narrow 128-column tile,
-    wider ones col_tile(W)."""
-    if 2 * rmax + 1 <= int(os.environ.get("PCR_GAUSS_NARROW_MAX", 65)):
+    """Column tile for Gaussian splats, radius-adaptive: windows up to
+    GAUSS_NARROW_MAX cells wide take the narrow 128-column tile, wider ones
+    col_tile(W)."""
+    if 2 * rmax + 1 <= GAUSS_NARROW_MAX:
         return min(128, col_tile(W))
     return col_tile(W)
 
@@ -68,11 +69,7 @@ def gauss_row_block(W: int, rmax: int) -> int:
     """Row block height for Gaussian splats, radius-adaptive: the TH in
     {32, 64, 128} minimizing the cost model dup_r * dup_c * (TH + WT + c)
     of halo duplication against per-entry work (sigma 1 -> 32, sigma 4 ->
-    64, sigma 16 -> 128). Every candidate divides H_pad (rounded to 128).
-    PCR_GAUSS_TH overrides."""
-    env = os.environ.get("PCR_GAUSS_TH")
-    if env:
-        return int(env)
+    64, sigma 16 -> 128). Every candidate divides H_pad (rounded to 128)."""
     w = 2 * rmax + 1
     wt = gauss_col_tile(W, rmax)
     best, bc = 128, float("inf")
@@ -91,12 +88,12 @@ GAUSS_WMIN = np.float32(5e-7)
 
 # Rotated (dense) splat blocks: shorter rows cut the per-point tile area
 # (the kernel evaluates TH*WT cells per point), narrower cols cut halo.
-ROT_ROW_BLOCK = int(os.environ.get("PCR_ROT_ROW_BLOCK", 32))
-ROT_COL_TILE = int(os.environ.get("PCR_ROT_COL_TILE", 128))
+ROT_ROW_BLOCK = 32
+ROT_COL_TILE = 128
 # Windowed rotated splat (K5): short row blocks; the radius gate bounds
 # halo duplication (copies ~ (1+2r/TH)(1+2r/32) per point).
-ROTP_ROW_BLOCK = int(os.environ.get("PCR_ROTP_ROW_BLOCK", 16))
-ROTP_RMAX = int(os.environ.get("PCR_ROTP_RMAX", 16))
+ROTP_ROW_BLOCK = 16
+ROTP_RMAX = 16
 
 
 def gauss_product_cutoff_bites(r, sx, sy) -> bool:
@@ -125,13 +122,13 @@ def gauss_corr_offsets(r, sx, sy, max_k: int | None = None):
     (-r,-r) corner), so the separable splat (K2, with its product cutoff)
     still serves. Returns () when no cell can bite (plain separable), a
     tuple of offsets when the set is small, or None when it is too large
-    (dense kernel).
+    (dense kernel); max_k defaults to GAUSS_CORR_MAX.
 
     Worst case over the sub-cell offset in [0, 1): |d - sub| <= max(|d|,
     |d-1|); the axis can still pass the per-axis mask when min |d - sub|
     = |d| (d <= 0) / d-1 (d >= 1) stays under the cutoff."""
     if max_k is None:
-        max_k = int(os.environ.get("PCR_GAUSS_CORR_MAX", 8))
+        max_k = GAUSS_CORR_MAX
     r = int(r)
     d = np.arange(-r, r + 1, dtype=np.float64)
     qmax = np.maximum(np.abs(d), np.abs(d - 1.0))

@@ -107,6 +107,32 @@ def test_k1_matches_plain_and_reruns_bit_identical(card, w, h, n, rtype,
             torch.testing.assert_close(g, r, atol=TOL, rtol=TOL)
 
 
+def k1_plan(bids, nb_total: int, group: int | None = None):
+    """The test's oracle of K1's first-pass groups, as
+    csrc/sorted_splat_point.cu forms them inline (the kernel is the only
+    planner; this copy lets the tests see its plan): a group starts at each
+    run's first sub-chunk and at each sub-chunk whose index is a multiple
+    of `group` (kernels.k1_group_size(nsub) by default), and ends before
+    the next start. Returns int64 arrays (first, end, slot), one entry per
+    group of a live run (bid in [0, nb_total)), in sub-chunk order; `slot`
+    is -1 for a run's only group (it writes the state), else the scratch
+    tile it writes: 2b for the group starting at block b's first sub-chunk
+    (b = first // group), 2b + 1 for one starting inside block b."""
+    bids = np.asarray(bids, np.int64)
+    nsub = len(bids)
+    group = group or kernels.k1_group_size(nsub)
+    j = np.arange(nsub)
+    run_start = np.ones(nsub, bool)
+    run_start[1:] = bids[1:] != bids[:-1]
+    first = np.flatnonzero(run_start | (j % group == 0))
+    end = np.append(first[1:], nsub)
+    run_end = np.append(run_start[1:], True)[end - 1]   # last of its run
+    alone = run_start[first] & run_end
+    slot = np.where(alone, -1, 2 * (first // group) + (first % group != 0))
+    keep = (bids[first] >= 0) & (bids[first] < nb_total)
+    return first[keep], end[keep], slot[keep]
+
+
 K1_FIELDS = {"one": RT.Sum, "two": RT.Average, "two_f1": RT.WeightedAverage}
 K1_SPLITS = {   # (w, h, n, group): layouts whose runs split into groups
     "160x160": (160, 160, 1_000_000, None),     # 2 tiles, ~250 groups each
@@ -126,7 +152,7 @@ def test_k1_split_runs(card, case, fields, adversarial):
     w, h, n, group = K1_SPLITS[case]
     eng, st = layout(card, w, h, n, K1_FIELDS[fields], adversarial, seed=2)
     nb_total = eng.H_pad // kernels.TH * eng.ncb
-    first, _, slot = kernels.k1_plan(st.bids.cpu().numpy(), nb_total, group)
+    first, _, slot = k1_plan(st.bids.cpu().numpy(), nb_total, group)
     assert (slot >= 0).sum() > 2 * nb_total        # the runs really split
     kw = dict(th=kernels.TH, wt=eng.WT, with_f1=st.params.shape[1] == 4)
     rng = np.random.default_rng(3)

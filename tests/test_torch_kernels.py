@@ -21,6 +21,7 @@ from pcr_tpu.engine.tpu_backend import PALLAS_BLOCK, TpuEngine
 from pcr_tpu_torch.engine import _build, kernels
 from pcr_tpu_torch.engine.torch_backend import (TorchEngine, layout_tiles,
                                                 layout_tiles_numpy)
+from test_torch_cuda import k1_plan
 from test_torch_pipeline import like
 
 RT = ref.ReductionType
@@ -315,7 +316,7 @@ def test_k1_plan_covers_every_subchunk_once_within_its_run(pattern, group):
     bids = plan_bids(pattern)
     nsub, nb_total = len(bids), 40
     g = group or kernels.k1_group_size(nsub)
-    first, end, slot = kernels.k1_plan(bids, nb_total, group)
+    first, end, slot = k1_plan(bids, nb_total, group)
     covered = np.zeros(nsub, int)
     for a, b in zip(first, end):
         covered[a:b] += 1
@@ -353,8 +354,8 @@ def test_k1_plan_depends_on_bids_alone():
     a, b = layouts
     assert not torch.equal(a.params, b.params)
     assert torch.equal(a.bids, b.bids)
-    for x, y in zip(kernels.k1_plan(a.bids.numpy(), 6),
-                    kernels.k1_plan(b.bids.numpy(), 6)):
+    for x, y in zip(k1_plan(a.bids.numpy(), 6),
+                    k1_plan(b.bids.numpy(), 6)):
         assert np.array_equal(x, y)
     assert kernels.k1_group_size(1) == kernels.GROUP_MIN
     assert kernels.k1_group_size(100 * kernels.GROUP_TARGET) == 100
@@ -370,7 +371,7 @@ def grouped_splat(states, params, bids, th, wt, with_f1, group):
     nb_total = h_pad // th * ncb
     scratch = np.full((2 * -(-nsub // group), len(states), th, wt), np.nan,
                       np.float32)
-    for a, b, slot in zip(*kernels.k1_plan(bids, nb_total, group)):
+    for a, b, slot in zip(*k1_plan(bids, nb_total, group)):
         r0, c0 = bids[a] // ncb * th, bids[a] % ncb * wt
         if slot >= 0:
             scratch[slot] = 0

@@ -18,6 +18,7 @@ import importlib
 import os
 import subprocess
 import sys
+import tempfile
 import textwrap
 import warnings
 
@@ -200,6 +201,41 @@ def test_resume_across_packages(first, second, tmp_path):
     _, oracle = run(ref, CPU, specs, [c1, c2])
     assert_bands([b.result().band_array(i) for i in range(len(specs))],
                  oracle, specs)
+
+
+def tree(root):
+    return {str(f): f.read_bytes() for f in root.rglob("*") if f.is_file()}
+
+
+@pytest.mark.parametrize("mode", ["device", "cpu", "cpu_tiled"])
+def test_no_state_dir_resumes_nothing(mode, monkeypatch, tmp_path):
+    """Without a state_dir a pipeline starts empty: PCRT tiles an earlier
+    run left under the temp root neither enter its band nor change, and
+    CPU out-of-core tiles spill into a private directory that goes with
+    the pipeline."""
+    import gc
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    specs = [spec(RT.Average), spec(RT.Max)]
+    exec_mode = GPU if mode == "device" else CPU
+    cfg = {"host_cache_budget": 64 * 64 * 4} if mode == "cpu_tiled" else {}
+    planted = tmp_path / "pcr_tiles"
+    run(port, exec_mode, specs, [cloud(seed=6)], state_dir=str(planted),
+        **cfg)
+    before = tree(planted)
+    assert before
+    c2 = cloud(seed=7)
+    p, got = run(port, exec_mode, specs, [c2], **cfg)
+    _, oracle = run(ref, CPU, specs, [c2], state_dir=str(tmp_path / "ref"))
+    assert_bands(got, oracle, specs)
+    assert tree(planted) == before
+    assert p._tiled == (mode == "cpu_tiled")
+    if p._tiled:
+        spill = p._spill_root
+        assert os.path.dirname(spill) == str(tmp_path) and os.listdir(spill)
+        del p
+        gc.collect()
+        assert not os.path.exists(spill)
 
 
 @pytest.mark.parametrize("rtype", [RT.Average, RT.WeightedAverage, RT.Max,
