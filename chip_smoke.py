@@ -32,7 +32,9 @@ Phases:
       Average, sigma 1 (K2 with the product cutoff), 4 and 16 (K2),
       rotated 4 x 1.5 (K5) and 8 x 3 (K4); the same touched footprint,
       bit-identical kernel reruns, a tolerance that grows with the terms
-      per cell (see gauss_rtol), and both times from CUDA events;
+      per cell (see gauss_rtol), and both times from CUDA events; then K4
+      and K2 on 200k points of mixed sign on the same grid cut into
+      256-cell tiles (the home-tile clip);
   (g) Gaussian pipelines on the 1000x1000 grid against the numpy oracle
       (1e-5 per cell, exact NaN footprint): sigma 4 Average 1M staged with
       state_dir + GeoTIFF + resume, sigma 1 WeightedAverage 1M, rotated
@@ -79,6 +81,7 @@ import numpy as np
 
 SEED = 20260101
 TOL = 1e-5
+ORACLE_S = []           # the CPU oracle's ingest walls, for the last report
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_FLOP_S = 67e12      # H100 SXM float32 peak outside the tensor cores
 
@@ -167,6 +170,8 @@ def run_pipeline(pcr, gc, specs, c, mode, staged=False, state_dir="",
         torch.cuda.synchronize()
     walls = {"create": t1 - t0, "stage": t2 - t1, "ingest": t3 - t2,
              "finalize": t4 - t3}
+    if mode == pcr.ExecutionMode.CPU:
+        ORACLE_S.append(t3 - t2)
     return p, [p.result().band_array(i) for i in range(len(specs))], walls
 
 
@@ -307,16 +312,42 @@ def gauss_rtol(n, size, r):
     return max(TOL, 8.0 * np.sqrt(k) * 2.0 ** -24)
 
 
-def gauss_case(torch, pcr, size, n, label, glyph, want_kind, seed):
+def walk_hits(torch, gk, chunk, geom, ncb):
+    """(entry, block) hits of a K2 / K4 / K5 chunk's walk: how often a warp
+    evaluates an entry over its 8 x 32 block (gauss_kernels.block_hits)."""
+    pr, total = chunk.params, 0
+    for a in range(0, pr.shape[0], 256):
+        p = pr[a:a + 256]
+        if chunk.kind == "rotp":
+            win = (p[:, 6], p[:, 7], p[:, 8], p[:, 9])
+        elif chunk.kind == "rot":
+            win = gk.rot_dense_windows(p[:, 6], p[:, 7], p[:, 8], geom)
+        else:
+            win = gk.gauss_windows(p[:, 0], p[:, 1], p[:, 6], geom)
+        total += int(gk.block_hits(win, chunk.bids[a:a + 256], chunk.th,
+                                   chunk.wt, ncb).sum())
+    return total
+
+
+def gauss_case(torch, pcr, gk, size, n, label, glyph, want_kind, seed,
+               tile=None, mixed=False):
     """(f): one Gaussian layout of n uniform points, staged through the
-    port's Pipeline, held kernel against plain."""
-    gc = grid(pcr, size, 3857)
+    port's Pipeline, held kernel against plain. `mixed` gives the values
+    both signs; the tolerance is then relative to each cell's sum of
+    |terms| (the plain version on |f0|), which bounds what another order
+    of the same terms can move."""
+    gc = grid(pcr, size, 3857, tile=tile)
     spec = pcr.gaussian_splat_spec("value", **glyph)
     spec.type = pcr.ReductionType.Average
     p = pcr.Pipeline.create(pcr.PipelineConfig(
         grid=gc, reductions=[spec], exec_mode=pcr.ExecutionMode.GPU,
         gpu_require_strict=True))
     c = cloud(pcr, n, 0.0, float(size), 100.0, seed)
+    if mixed:
+        rng = np.random.default_rng(seed + 1)
+        c.set_channel_array_f32("value", (
+            rng.normal(0, 1, n) * 10.0 ** rng.integers(-2, 3, n)).astype(
+                np.float32))
     (chunk,) = p.stage(c).per_spec[0]
     check(chunk.kind == want_kind, f"{label}: routed to {chunk.kind}, not "
                                    f"{want_kind}")
@@ -342,8 +373,22 @@ def gauss_case(torch, pcr, size, n, label, glyph, want_kind, seed):
                                       glyph.get("default_sigma", 1.0))),
                 32))
     rtol = gauss_rtol(n, size, r)
-    err = max(close(g.cpu().numpy(), w.cpu().numpy(), label, rtol, rtol)
-              for g, w in zip(got, ref))
+    if mixed:
+        f0 = 7 if chunk.kind == "gauss" else 5
+        pa = pr.clone()
+        pa[:, f0] = pa[:, f0].view(torch.float32).abs().view(pa.dtype)
+        scale = fresh()
+        plain(scale, pa, b, **kw)
+        err = 0.0
+        for g, w, sc in zip(got, ref, scale):
+            d = (g - w).abs()
+            check(bool((d <= rtol + rtol * sc).all()),
+                  f"{label}: max |diff| {float(d.max())} over rtol={rtol} "
+                  f"of the cells' sums of |terms|")
+            err = max(err, float(d.max()))
+    else:
+        err = max(close(g.cpu().numpy(), w.cpu().numpy(), label, rtol, rtol)
+                  for g, w in zip(got, ref))
     scratch = fresh()
     ms, plain_ms, turns = time_turns(
         torch, lambda: kern(scratch, pr, b, **kw),
@@ -362,8 +407,11 @@ def gauss_case(torch, pcr, size, n, label, glyph, want_kind, seed):
     cells = window_cells(torch, b, chunk.th, chunk.wt, ncb, *win)
     per_cell = (1 if chunk.kind == "gauss" else 5) + 2 * len(scratch)
     bms, by = bound(io_bytes(pr, b, scratch), cells * per_cell)
+    plan = gk.splat_plan(chunk.kind, chunk.th, chunk.wt)
     print(f"(f) {label}: {chunk.kind} th={chunk.th} wt={chunk.wt} "
-          f"cut={chunk.cut} nsub={pr.shape[0]} rtol={rtol:.3g} "
+          f"cut={chunk.cut} nsub={pr.shape[0]} slices={plan.slices} "
+          f"smem={plan.smem_bytes} walk_hits="
+          f"{walk_hits(torch, gk, chunk, eng.geom, ncb)} rtol={rtol:.3g} "
           f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
           f"window_cells={cells:.0f} bound_ms={bms!r} ({by}) "
           f"(turns: {turns})")
@@ -499,6 +547,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import pcr_tpu_torch as pcr
     from pcr_tpu_torch.engine import _build, gauss_kernels, kernels
     from pcr_tpu_torch.engine import line_kernels as lk
@@ -635,10 +684,17 @@ def main() -> int:
                 ("K5 rotated 4x1.5", rot4, "rotp"),
                 ("K4 rotated 8x3", rot8, "rot"),
                 ("K2 sigma 4", s4, "gauss")):
-            res = gauss_case(torch, pcr, 1000, 5_000_000,
+            res = gauss_case(torch, pcr, gauss_kernels, 1000, 5_000_000,
                              f"1000x1000 5M Average {label}", glyph, kind,
                              SEED + 4)
             fres.setdefault(kind, []).append(res)
+        # the home-tile clip of a multi-tile grid, which the rows above
+        # never take, on values of both signs
+        for label, glyph, kind in (("K4 rotated 8x3", rot8, "rot"),
+                                   ("K2 sigma 4", s4, "gauss")):
+            gauss_case(torch, pcr, gauss_kernels, 1000, 200_000,
+                       f"1000x1000 256-cell tiles 200k mixed sign {label}",
+                       glyph, kind, SEED + 11, tile=256, mixed=True)
         # the glyph suite's headline shapes: sigma 4 (K2), the rotated rows
         kstat = {k: (max(r[0] for r in v), v[-1][1], v[-1][2], v[-1][3])
                  for k, v in fres.items()}
@@ -814,6 +870,9 @@ def main() -> int:
              k6_plain_ms, k6_bound, None, None)]
     leaked = [m for m in ("pcr_tpu", "pcr", "jax") if m in sys.modules]
     check(not leaked, f"the port imported {leaked}")
+    print(f"every phase passed in {time.perf_counter() - t_start:.1f}s, "
+          f"{sum(ORACLE_S):.1f}s of them the CPU oracle's ingest loops on "
+          f"the host")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"pcr_tpu_torch/csrc/{src}",

@@ -27,33 +27,56 @@
 // the corr rows compute, for every offset at once; the caller passes cut =
 // (corr_offsets is not empty), as the TPU's routing decides.
 //
-// Design. One CTA owns one run of equal bids (one state tile) and walks its
-// sub-chunks in order; no other CTA writes the tile, so no atomics are needed
-// and every sum has a fixed order. The tile is covered in passes of
-// (8 * MR) rows x 128 columns. In a pass each of the 256 threads owns MR rows
-// x 4 columns of cells (rows ty*MR.., columns tx + 32 j) in registers. The
-// CTA stages the factors of kBatch entries at a time in shared memory
-// (wy for the pass's rows, wx and wx * f0 for its columns), and every thread
-// then adds the batch's products to its cells in entry order. The state is
-// read and written once per cell per sub-chunk, after the sub-chunk's last
-// batch. Reruns are bit-identical.
+// Design. One CTA of 128 threads owns 8 rows x 128 columns of one state tile
+// for the whole launch (csrc/splat_walk.cuh), so a (64, 128) tile is eight
+// CTAs and a (128, 128) tile sixteen: about a thousand CTAs on a 1000 x 1000
+// grid at every sigma, where one CTA per tile gave 64 to 256. Nothing else
+// writes the slice, so no atomics are needed and every sum has a fixed
+// order. Thread t holds column t's 8 cells of each field in registers, so a
+// warp owns a block of 8 rows x 32 columns. The run's entries stream through
+// shared memory in pieces of kPiece, the next piece copied by cp.async while
+// this one is walked. When a piece has landed, one thread per entry forms
+// its masked column and row ranges [clo, chi] x [rlo, rhi] (the +-r window
+// clipped to the grid and, on a multi-tile grid, to the home tile; the
+// integer divisions once per entry and CTA), empty ranges made unhittable,
+// and a 16-byte record of what wx needs; then one thread per (entry, row)
+// forms wy for the slice's 8 rows (0 outside the range and below 1e-6, as
+// the TPU kernel masks it; skipped where a warp's entries all miss the
+// slice). Each warp then tests 32 entries at a time against its block,
+// ballots, and walks only the hits, in entry order: four broadcast loads
+// bring the record, the column range and the eight wy, each lane forms wx
+// for its column, and the eight rows take their products with no branch. A
+// cell's terms are added in entry order within a sub-chunk, and the
+// sub-chunk's sum is added to the state, once per cell and sub-chunk, as
+// in the first version: a masked factor's term was 0 there and adds nothing
+// here, so the two give the same bits.
 //
-// What bounds it: the dense contraction, 2048 x th x wt multiply-adds per
-// sub-chunk and field (about 60 G at sigma = 4 on 5M points), fed from
-// shared memory: per entry a warp issues MR*4 (x2 fields) FMAs against
-// about 1 + 8 shared-memory wavefronts. The factor generation (an IEEE
-// division and an expf per entry and row / column) is the second cost.
-// Bytes from device memory (32 B per entry) do not matter.
+// What bounds it: instruction issue in the hit walk, about 55-70
+// instructions a hit, half of them wx (an IEEE division and an expf), one
+// dependent chain a hit; bytes do not matter (32 B per entry, re-read from
+// L2 by a run's slices). The first version formed th x wt products per
+// entry and field from factors staged in shared memory (21 times the
+// window's cells at sigma 4) and made factors for every row and column of
+// the tile; the walk forms 8 x 32 products per hit, wx only for a hit
+// block's columns, and wy once per entry and slice. Forming wy in the walk
+// (one lane a row, passed round by shuffles) cost 8 shuffles and 13 scalar
+// shared-memory loads a hit, and was a fifth slower. The registers are
+// capped at 64 a thread (8 CTAs an SM): more warps in flight hid more of
+// the factor chain's latency than the extra registers did.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "splat_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlock = 2048;  // entries per sub-chunk
-constexpr int kBatch = 32;    // entries staged in shared memory at a time
-constexpr int kCols = 128;    // columns per pass: 32 lanes x 4
+using namespace splat;
+
+constexpr int kPiece = 256;          // entries staged at a time
+constexpr int kMinCtas = 8;          // CTAs an SM: 64 registers a thread
+constexpr int kSeg = 8;
+constexpr int kNever = 1 << 30;      // an empty range's lo; hi = -kNever
+// words per staged entry: its segments, its ranges, the column record
+// and ranges, and its eight wy
+constexpr int kSmemBytes = (kSeg + 4 + 4 + 2 + 8) * kPiece * 4;
 
 struct GaussGeom {
   int th, wt, ncb, nb_total, w_pad;
@@ -64,146 +87,167 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// One axis factor of the TPU kernel: exp(-0.5 q^2), q = ((x - ic) - sub) / s.
-__device__ __forceinline__ float axis_factor(int x, int ic, float sub,
-                                             float s) {
-  const float q = (__int2float_rn(x) - __int2float_rn(ic)) - sub;
+// One axis factor of the TPU kernel: exp(-0.5 q^2), q = ((x - ic) - sub) / s,
+// where x lies in [lo, hi] and the factor is at least 1e-6; else 0. x and ic
+// come as floats (whole numbers).
+__device__ __forceinline__ float axis_factor(float x, bool inside, float ic,
+                                             float sub, float s) {
+  const float q = (x - ic) - sub;
   const float qq = q / s;
-  return expf(-0.5f * qq * qq);
+  const float w = expf(-0.5f * qq * qq);
+  return inside && w >= 1e-6f ? w : 0.0f;
 }
 
-template <int MR, int NF, bool CUT>
-__global__ void __launch_bounds__(kThreads)
+template <int NF, bool CUT>
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 sorted_splat_gauss_kernel(const int32_t* __restrict__ params,
                           const int32_t* __restrict__ bids, int64_t nsub,
                           float* __restrict__ s0, float* __restrict__ s1,
                           GaussGeom g) {
-  constexpr int kRows = 8 * MR;           // rows per pass
-  constexpr bool kWx = NF == 2 || CUT;    // the bare wx is needed
-  __shared__ float wy_s[kBatch][kRows];
-  __shared__ float wxf_s[kBatch][kCols];
-  __shared__ float wx_s[kWx ? kBatch : 1][kCols];
+  constexpr int kPieces = kBlock / kPiece;
+  // the staged piece as it came, then what the walk reads of it
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* ent = smem;                         // [kSeg][kPiece]
+  int32_t* win = ent + kSeg * kPiece;          // [4][kPiece], for the ballot
+  float4* col_rec = reinterpret_cast<float4*>(win + 4 * kPiece);
+  int2* col_win = reinterpret_cast<int2*>(col_rec + kPiece);
+  float* wys = reinterpret_cast<float*>(col_win + kPiece);  // [kPiece][8]
+  const float* entf = reinterpret_cast<const float*>(ent);
 
   const int64_t first = blockIdx.x;
   const int bid = bids[first];
   if (bid < 0 || bid >= g.nb_total || (first > 0 && bids[first - 1] == bid))
     return;
-  const int row0 = (bid / g.ncb) * g.th;
-  const int col0 = (bid % g.ncb) * g.wt;
+  const int col_slices = g.wt / kSliceCols;
   const int t = threadIdx.x;
-  const int tx = t & 31;
-  const int ty = t >> 5;
+  const int lane = t & 31;
+  const int row_lo = (bid / g.ncb) * g.th +
+                     static_cast<int>(blockIdx.y) / col_slices * kSliceRows;
+  const int col = (bid % g.ncb) * g.wt +
+                  static_cast<int>(blockIdx.y) % col_slices * kSliceCols + t;
+  const float colf = __int2float_rn(col);
+  // the warp's block, inclusive
+  const int c_lo = col - lane, c_hi = c_lo + 31;
+  const int r_hi = row_lo + kSliceRows - 1;
 
-  for (int64_t j = first; j < nsub && bids[j] == bid; ++j) {
-    const int32_t* p = params + j * 8 * kBlock;
-    const float* pf = reinterpret_cast<const float*>(p);
-    for (int pr = 0; pr < g.th; pr += kRows) {
-      for (int pc = 0; pc < g.wt; pc += kCols) {
-        float acc0[MR][4], acc1[NF == 2 ? MR : 1][4];
+  const int32_t* run = params + first * kSeg * kBlock;
+  const int64_t npiece = (run_end(bids, first, nsub, bid) - first) * kPieces;
+  float acc0[kSliceRows], acc1[NF == 2 ? kSliceRows : 1];
 #pragma unroll
-        for (int i = 0; i < MR; ++i)
+  for (int i = 0; i < kSliceRows; ++i) {
+    acc0[i] = 0.0f;
+    if constexpr (NF == 2) acc1[i] = 0.0f;
+  }
+
+  stage_piece<kSeg, kPiece>(ent, run, 0);
+  for (int64_t q = 0; q < npiece; ++q) {
+    cp_async_wait_all();
+    __syncthreads();  // piece q has landed; the walk of piece q - 1 is over
+    for (int e = t; e < kPiece; e += kThreads) {
+      const int icx = ent[e], icy = ent[kPiece + e], r = ent[6 * kPiece + e];
+      int clo = icx - r, chi = min(icx + r, g.W - 1);
+      int rlo = icy - r, rhi = min(icy + r, g.H - 1);
+      if (g.multi_tile) {
+        const int cs = (clampi(icx, 0, g.W - 1) / g.tile_w) * g.tile_w;
+        clo = max(clo, cs);
+        chi = min(chi, min(cs + g.tile_w, g.W) - 1);
+        const int rowc = clampi(icy + g.row_offset, 0, g.global_h - 1);
+        const int rs = (rowc / g.tile_h) * g.tile_h - g.row_offset;
+        const int re = min(rs + g.row_offset + g.tile_h, g.global_h) -
+                       g.row_offset;
+        rlo = max(rlo, rs);
+        rhi = min(rhi, re - 1);
+      }
+      if (r < 0 || clo > chi || rlo > rhi) {
+        clo = rlo = kNever;
+        chi = rhi = -kNever;
+      }
+      win[e] = clo;
+      win[kPiece + e] = chi;
+      win[2 * kPiece + e] = rlo;
+      win[3 * kPiece + e] = rhi;
+      // float(icx), sub_cx, sx, f0 | clo, chi
+      col_rec[e] = make_float4(__int2float_rn(icx), entf[2 * kPiece + e],
+                               entf[4 * kPiece + e], entf[7 * kPiece + e]);
+      col_win[e] = make_int2(clo, chi);
+    }
+    __syncthreads();
+    // wy of the slice's 8 rows for every entry, one (entry, row) a thread
+    // and turn; a warp whose four entries all miss the slice's rows skips
+    for (int k = t; k < kPiece * kSliceRows; k += kThreads) {
+      const int e = k / kSliceRows, h = row_lo + k % kSliceRows;
+      const int rlo = win[2 * kPiece + e], rhi = win[3 * kPiece + e];
+      float wy = 0.0f;
+      if (rlo <= r_hi && rhi >= row_lo)
+        wy = axis_factor(__int2float_rn(h), h >= rlo && h <= rhi,
+                         __int2float_rn(ent[kPiece + e]),
+                         entf[3 * kPiece + e], entf[5 * kPiece + e]);
+      wys[k] = wy;
+    }
+    __syncthreads();  // the records are written; `ent` is free again
+    if (q + 1 < npiece) stage_piece<kSeg, kPiece>(ent, run, q + 1);
+
+    for (int e0 = 0; e0 < kPiece; e0 += 32) {
+      const int e = e0 + lane;
+      // an entry hits the block exactly when its ranges share a cell with it
+      unsigned hits = __ballot_sync(
+          kAll, win[e] <= c_hi && win[kPiece + e] >= c_lo &&
+                    win[2 * kPiece + e] <= r_hi &&
+                    win[3 * kPiece + e] >= row_lo);
+      while (hits) {  // the warp's hits, in entry order
+        const int k = e0 + __ffs(hits) - 1;
+        hits &= hits - 1;
+        const float4 c = col_rec[k];
+        const int2 cw = col_win[k];
+        const float4 w0 = reinterpret_cast<const float4*>(wys)[2 * k];
+        const float4 w1 = reinterpret_cast<const float4*>(wys)[2 * k + 1];
+        const float wy[kSliceRows] = {w0.x, w0.y, w0.z, w0.w,
+                                      w1.x, w1.y, w1.z, w1.w};
+        const float wx =
+            axis_factor(colf, col >= cw.x && col <= cw.y, c.x, c.y, c.z);
+        const float a = wx * c.w;
+        // no branch in the rows: a masked factor is 0 and adds nothing
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            acc0[i][c] = 0.0f;
-            if constexpr (NF == 2) acc1[i][c] = 0.0f;
-          }
-        for (int b0 = 0; b0 < kBlock; b0 += kBatch) {
-          // stage the batch's factors for this pass's rows and columns
-          for (int k = t; k < kBatch * kRows; k += kThreads) {
-            const int e = b0 + k / kRows;
-            const int h = row0 + pr + k % kRows;
-            const int icy = p[kBlock + e];
-            const int r = p[6 * kBlock + e];
-            const float w = axis_factor(h, icy, pf[3 * kBlock + e],
-                                        pf[5 * kBlock + e]);
-            bool ok = abs(h - icy) <= r && w >= 1e-6f && h < g.H;
-            if (g.multi_tile) {
-              const int rowc = clampi(icy + g.row_offset, 0, g.global_h - 1);
-              const int rs = (rowc / g.tile_h) * g.tile_h - g.row_offset;
-              const int re = min(rs + g.row_offset + g.tile_h, g.global_h) -
-                             g.row_offset;
-              ok = ok && h >= rs && h < re;
+        for (int i = 0; i < kSliceRows; ++i) {
+          if constexpr (CUT) {
+            const float prod = wy[i] * wx;
+            if (prod >= 1e-6f) {
+              acc0[i] = fmaf(wy[i], a, acc0[i]);
+              if constexpr (NF == 2) acc1[i] += prod;
             }
-            wy_s[k / kRows][k % kRows] = ok ? w : 0.0f;
+          } else {
+            acc0[i] = fmaf(wy[i], a, acc0[i]);
+            if constexpr (NF == 2) acc1[i] = fmaf(wy[i], wx, acc1[i]);
           }
-          for (int k = t; k < kBatch * kCols; k += kThreads) {
-            const int e = b0 + k / kCols;
-            const int x = col0 + pc + k % kCols;
-            const int icx = p[e];
-            const int r = p[6 * kBlock + e];
-            const float w = axis_factor(x, icx, pf[2 * kBlock + e],
-                                        pf[4 * kBlock + e]);
-            bool ok = abs(x - icx) <= r && w >= 1e-6f && x < g.W;
-            if (g.multi_tile) {
-              const int cs = (clampi(icx, 0, g.W - 1) / g.tile_w) * g.tile_w;
-              ok = ok && x >= cs && x < min(cs + g.tile_w, g.W);
-            }
-            const float wx = ok ? w : 0.0f;
-            wxf_s[k / kCols][k % kCols] = wx * pf[7 * kBlock + e];
-            if constexpr (kWx) wx_s[k / kCols][k % kCols] = wx;
-          }
-          __syncthreads();
-#pragma unroll 4
-          for (int e = 0; e < kBatch; ++e) {
-            float wy[MR], a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < MR; ++i) wy[i] = wy_s[e][ty * MR + i];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              a[c] = wxf_s[e][tx + 32 * c];
-              if constexpr (kWx) b[c] = wx_s[e][tx + 32 * c];
-            }
-#pragma unroll
-            for (int i = 0; i < MR; ++i)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                if constexpr (CUT) {
-                  const float prod = wy[i] * b[c];
-                  if (prod >= 1e-6f) {
-                    acc0[i][c] = fmaf(wy[i], a[c], acc0[i][c]);
-                    if constexpr (NF == 2) acc1[i][c] += prod;
-                  }
-                } else {
-                  acc0[i][c] = fmaf(wy[i], a[c], acc0[i][c]);
-                  if constexpr (NF == 2) acc1[i][c] = fmaf(wy[i], b[c],
-                                                           acc1[i][c]);
-                }
-              }
-          }
-          __syncthreads();  // the factors are restaged next
         }
-        // one read-modify-write per cell for this sub-chunk
+      }
+    }
+    if (q % kPieces == kPieces - 1) {
+      // the sub-chunk's last piece: one read-modify-write per cell
 #pragma unroll
-        for (int i = 0; i < MR; ++i) {
-          const int64_t row = row0 + pr + ty * MR + i;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int64_t off = row * g.w_pad + col0 + pc + tx + 32 * c;
-            s0[off] += acc0[i][c];
-            if constexpr (NF == 2) s1[off] += acc1[i][c];
-          }
+      for (int i = 0; i < kSliceRows; ++i) {
+        const int64_t off = static_cast<int64_t>(row_lo + i) * g.w_pad + col;
+        s0[off] += acc0[i];
+        acc0[i] = 0.0f;
+        if constexpr (NF == 2) {
+          s1[off] += acc1[i];
+          acc1[i] = 0.0f;
         }
       }
     }
   }
 }
 
-template <int MR>
+template <int NF, bool CUT>
 int launch(const int32_t* p, const int32_t* b, int64_t nsub, float* f0,
-           float* f1, int nf, int cut, const GaussGeom& g, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>(nsub));
-  if (nf == 1 && !cut)
-    sorted_splat_gauss_kernel<MR, 1, false><<<grid, kThreads, 0, st>>>(
-        p, b, nsub, f0, f1, g);
-  else if (nf == 1)
-    sorted_splat_gauss_kernel<MR, 1, true><<<grid, kThreads, 0, st>>>(
-        p, b, nsub, f0, f1, g);
-  else if (!cut)
-    sorted_splat_gauss_kernel<MR, 2, false><<<grid, kThreads, 0, st>>>(
-        p, b, nsub, f0, f1, g);
-  else
-    sorted_splat_gauss_kernel<MR, 2, true><<<grid, kThreads, 0, st>>>(
-        p, b, nsub, f0, f1, g);
+           float* f1, const GaussGeom& g, int slices, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      sorted_splat_gauss_kernel<NF, CUT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(nsub), static_cast<unsigned>(slices));
+  sorted_splat_gauss_kernel<NF, CUT><<<grid, kThreads, kSmemBytes, st>>>(
+      p, b, nsub, f0, f1, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -212,17 +256,24 @@ int launch(const int32_t* p, const int32_t* b, int64_t nsub, float* f0,
 extern "C" {
 
 int pcr_sorted_splat_gauss_block() { return kBlock; }
+int pcr_sorted_splat_gauss_piece() { return kPiece; }
 
 // Launches K2 on `stream`; returns the cudaError_t of the launch (0 = ok).
-// th must be a multiple of 32 and wt of 128. Allocates nothing and does not
+// th must be a multiple of 8 and wt of 128; `slices` and `smem` are the
+// wrapper's plan (gauss_kernels.splat_plan). Allocates nothing and does not
 // synchronise.
 int pcr_sorted_splat_gauss(const void* params, const void* bids, int64_t nsub,
                            void* s0, void* s1, int nf, int cut, int th, int wt,
                            int ncb, int nb_total, int w_pad, int H, int W,
                            int multi_tile, int tile_w, int tile_h,
-                           int row_offset, int global_h, void* stream) {
+                           int row_offset, int global_h, int slices, int smem,
+                           void* stream) {
   if (nsub <= 0) return static_cast<int>(cudaSuccess);
-  if (th % 32 || wt % kCols || (nf != 1 && nf != 2))
+  // the wrapper plans the grid and the shared memory; both must be the
+  // kernel's own
+  if (th % kSliceRows || wt % kSliceCols || (nf != 1 && nf != 2) ||
+      slices != (th / kSliceRows) * (wt / kSliceCols) || smem != kSmemBytes ||
+      reinterpret_cast<uintptr_t>(params) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const GaussGeom g{th, wt, ncb, nb_total, w_pad, H, W, multi_tile,
                     tile_w, tile_h, row_offset, global_h};
@@ -231,8 +282,11 @@ int pcr_sorted_splat_gauss(const void* params, const void* bids, int64_t nsub,
   auto* f0 = static_cast<float*>(s0);
   auto* f1 = static_cast<float*>(s1);
   auto st = static_cast<cudaStream_t>(stream);
-  return th % 64 == 0 ? launch<8>(p, b, nsub, f0, f1, nf, cut, g, st)
-                      : launch<4>(p, b, nsub, f0, f1, nf, cut, g, st);
+  if (nf == 1)
+    return cut ? launch<1, true>(p, b, nsub, f0, f1, g, slices, st)
+               : launch<1, false>(p, b, nsub, f0, f1, g, slices, st);
+  return cut ? launch<2, true>(p, b, nsub, f0, f1, g, slices, st)
+             : launch<2, false>(p, b, nsub, f0, f1, g, slices, st);
 }
 
 }  // extern "C"

@@ -11,7 +11,9 @@ without the conftest (this file needs nothing from it):
 K1 is held against its plain PyTorch version at atol = rtol = 1e-5 (the
 two add the same float32 values in different orders), its reruns must be
 bit-identical, and the pipeline against the numpy CPU oracle. K2, K4 and K5
-likewise, at a tolerance that grows with the terms per cell (gauss_rtol).
+likewise, at a tolerance that grows with the terms per cell (gauss_rtol);
+the walks of K2 and K4 also on points at the borders of their slices, blocks
+and tiles.
 K3 (Line runs) at 1e-5, with the same touched cells; K6 (the rot-expand
 probe) at the probe's rtol = 1e-4 with atol = rot_expand.atol(...).
 """
@@ -318,6 +320,142 @@ def test_gauss_pipeline_on_the_card_matches_oracle(card, glyph, monkeypatch):
                     bands[pcr.ExecutionMode.CPU]):
         assert np.array_equal(np.isnan(g), np.isnan(o))
         np.testing.assert_allclose(g, o, atol=TOL, rtol=TOL)
+
+
+# -- the window-aware walks of K2 and K4 (csrc/splat_walk.cuh) ---------------
+
+BORDER_X = [0.2, 31.5, 32.0, 32.5, 63.9, 64.1, 127.5, 128.2, 199.7]
+BORDER_Y = [0.1, 7.5, 8.0, 8.5, 31.9, 32.1, 63.5, 64.4, 127.9, 128.1, 149.8]
+WALK_GLYPHS = {           # glyph, kind, th, r
+    "s1": (dict(default_sigma=1.0), "gauss", 32, 3),
+    "s4": (dict(default_sigma=4.0), "gauss", 64, 12),
+    "s16": (dict(default_sigma=16.0), "gauss", 128, 32),
+    "rot8": (dict(default_sigma_x=8.0, default_sigma_y=3.0,
+                  default_rotation=0.6), "rot", 32, 24),
+}
+WALK_GEOMS = {            # the staging grid's tile, the masks' geometry
+    "one_tile": (4096, None),
+    "tiles64": (64, None),
+    "row_offset": (64, gk.GaussGeom(110, 200, True, 64, 48, 40, 150)),
+}
+N_WALK = 20_000
+
+
+def walk_chunk(card, glyph, tile, rtype, adversarial):
+    """A chunk of points on the borders of the walk's 8-row slices and
+    32-column blocks and of the tiles, then N_WALK random ones, on
+    200 x 150, with a sub-chunk of dead entries appended to the last run."""
+    w, h = 200.0, 150.0
+    spec = pcr.gaussian_splat_spec("v", **WALK_GLYPHS[glyph][0])
+    spec.type = rtype
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=make_grid_config(w=w, h=h, tile=tile), reductions=[spec],
+        exec_mode=pcr.ExecutionMode.GPU, gpu_require_strict=True))
+    rng = np.random.default_rng(7)
+    bx, by = np.meshgrid(BORDER_X, BORDER_Y)
+    x = np.concatenate([bx.ravel(), rng.uniform(0, w, N_WALK)])
+    y = np.concatenate([by.ravel(), rng.uniform(0, h, N_WALK)])
+    n = len(x)
+    c = pcr.PointCloud.create(n)
+    c.set_x_array(x)
+    c.set_y_array(y)
+    vals = (rng.normal(0, 1, n) * 10.0 ** rng.integers(-3, 4, n)
+            if adversarial else rng.uniform(0, 100, n))
+    c.add_channel("v", pcr.DataType.Float32)
+    c.set_channel_array_f32("v", vals.astype(np.float32))
+    (chunk,) = p.stage(c).per_spec[0]
+    kind, th = WALK_GLYPHS[glyph][1:3]
+    assert chunk.kind == kind and chunk.th == th and chunk.params.is_cuda
+    dead = torch.zeros_like(chunk.params[:1])
+    dead[:, 6 if kind == "gauss" else 8] = -1
+    return (p._engine, chunk, torch.cat([chunk.params, dead]),
+            torch.cat([chunk.bids, chunk.bids[-1:]]), n)
+
+
+@pytest.mark.parametrize("adversarial", [False, True],
+                         ids=["parity", "reruns"])
+@pytest.mark.parametrize("rtype", [RT.Sum, RT.Average], ids=["nf1", "nf2"])
+@pytest.mark.parametrize("geom", list(WALK_GEOMS))
+@pytest.mark.parametrize("glyph", list(WALK_GLYPHS))
+def test_walk_kernels_on_slice_and_block_borders(card, glyph, geom, rtype,
+                                                 adversarial):
+    """K2 (th 32 with the cutoff, 64, 128) and K4 where the walk's cases
+    meet: windows that straddle slices, blocks and tiles, entries whose
+    home-tile clip leaves them no cell of a tile (64-cell tiles, with and
+    without a row offset), a dead sub-chunk, one field and two. Reruns
+    bit-identical; on adversarial values only those."""
+    tile, masks = WALK_GEOMS[geom]
+    eng, chunk, params, bids, n = walk_chunk(card, glyph, tile, rtype,
+                                             adversarial)
+    kern, plain, kw = eng.splat_fns(chunk)
+    if masks is not None:
+        kw = dict(kw, geom=masks)
+    rng = np.random.default_rng(1)
+    init = [torch.from_numpy(rng.uniform(0, 1, s.shape).astype(np.float32))
+            .to(card) for s in eng._states[0]]
+    assert len(init) == (2 if rtype == RT.Average else 1)
+    got, again, want = ([s.clone() for s in init] for _ in range(3))
+    before = kern.launches
+    kern(got, params, bids, **kw)
+    kern(again, params, bids, **kw)
+    assert kern.launches == before + 2
+    plain(want, params, bids, **kw)
+    torch.cuda.synchronize()
+    rtol = gauss_rtol(n, 200 * 150, WALK_GLYPHS[glyph][3])
+    for g, a, r, s in zip(got, again, want, init):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        if not adversarial:
+            assert torch.equal(g != s, r != s)        # the touched cells
+            torch.testing.assert_close(g, r, atol=rtol, rtol=rtol)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["nocut", "cut"])
+@pytest.mark.parametrize("glyph", ["s1", "s4"])
+def test_k2_product_cutoff_both_ways(card, glyph, cut):
+    """The product cutoff on and off on the same entries, whatever the
+    routing chose for them."""
+    eng, chunk, params, bids, n = walk_chunk(card, glyph, 64, RT.Average,
+                                             False)
+    kw = dict(th=chunk.th, wt=chunk.wt, cut=cut, geom=eng.geom)
+    got = [torch.zeros_like(s) for s in eng._states[0]]
+    want = [torch.zeros_like(s) for s in eng._states[0]]
+    gk.sorted_splat_gauss(got, params, bids, **kw)
+    gk.sorted_splat_gauss_plain(want, params, bids, **kw)
+    rtol = gauss_rtol(n, 200 * 150, WALK_GLYPHS[glyph][3])
+    for g, r in zip(got, want):
+        assert torch.equal(g != 0, r != 0)
+        torch.testing.assert_close(g, r, atol=rtol, rtol=rtol)
+
+
+@pytest.mark.parametrize("glyph", ["s4", "rot8"])
+def test_walk_kernels_on_wide_tiles(card, glyph):
+    """(th, 256) tiles, two column slices a row slice: the 128-column
+    tiles' runs are merged pairwise (bids // 2 stays ascending; halo copies
+    then count twice, in the kernel and in plain alike)."""
+    eng, chunk, params, bids, n = walk_chunk(card, glyph, 4096, RT.Average,
+                                             False)
+    assert chunk.wt == 128 and eng._states[0][0].shape[1] == 256
+    kern, plain, kw = eng.splat_fns(chunk)
+    kw = dict(kw, wt=256)
+    got = [torch.zeros_like(s) for s in eng._states[0]]
+    want = [torch.zeros_like(s) for s in eng._states[0]]
+    kern(got, params, bids // 2, **kw)
+    plain(want, params, bids // 2, **kw)
+    rtol = gauss_rtol(2 * n, 200 * 150, WALK_GLYPHS[glyph][3])
+    for g, r in zip(got, want):
+        assert torch.equal(g != 0, r != 0)
+        torch.testing.assert_close(g, r, atol=rtol, rtol=rtol)
+
+
+def test_walk_kernels_refuse_unaligned_params(card):
+    """cp.async copies 16 bytes at a time."""
+    states = [torch.zeros(128, 128, device=card)]
+    flat = torch.zeros(8 * 2048 + 1, dtype=torch.int32, device=card)
+    params = flat[1:].view(1, 8, 2048)
+    bids = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        gk.sorted_splat_gauss(states, params, bids, th=32, wt=128, cut=False,
+                              geom=gk.GaussGeom(128, 128))
 
 
 LINES = {

@@ -109,3 +109,25 @@ def test_every_module_imports_with_the_jax_package_blocked():
     assert r.returncode == 0, r.stderr[-3000:]
     n, ok = r.stdout.split()
     assert ok == "ok" and int(n) >= 25
+
+
+def test_an_install_ships_every_kernel_source():
+    """Every file of pcr_tpu_torch/csrc (sources and the headers they
+    include) is named by the wheel's package data and by the sdist's
+    manifest: a kernel built at first use needs them all."""
+    import fnmatch
+    import glob
+    with open(os.path.join(REPO, "pyproject.toml")) as f:
+        pyproject = f.read()
+    line = next(ln for ln in pyproject.splitlines()
+                if ln.startswith('"pcr_tpu_torch" ='))
+    wheel = [p.strip(' "') for p in line.split("[")[1].rstrip("]").split(",")]
+    with open(os.path.join(REPO, "MANIFEST.in")) as f:
+        sdist = [ln.split()[1] for ln in f if ln.startswith("include ")]
+    files = glob.glob(os.path.join(REPO, "pcr_tpu_torch", "csrc", "*"))
+    assert any(f.endswith(".cuh") for f in files)
+    for path in files:
+        rel = os.path.relpath(path, REPO)
+        assert any(fnmatch.fnmatch(rel, os.path.join("pcr_tpu_torch", p))
+                   for p in wheel), rel
+        assert any(fnmatch.fnmatch(rel, p) for p in sdist), rel

@@ -128,20 +128,85 @@ def test_k3_plain_matches_pallas(monkeypatch, rtype, tile, init):
         assert np.array_equal(w[~hit].view(np.int32), s0[~hit].view(np.int32))
 
 
+def without_native(monkeypatch, *natives):
+    """Put the given packages' native modules on their numpy routes, as if
+    no library had been found."""
+    for nat in natives:
+        monkeypatch.setattr(nat, "_LIB", None)
+        monkeypatch.setattr(nat, "_TRIED", True)
+
+
+def live_runs(params, bids):
+    """Per tile id, the live rectangles [ax, bx, ay, by, f0 bits] of its
+    run in entry order, and the entries left over."""
+    flat = params.transpose(0, 2, 1).reshape(-1, 5)
+    tile = np.repeat(bids, params.shape[2])
+    live = flat[:, 0] <= flat[:, 1]
+    runs = {int(b): flat[live & (tile == b)] for b in np.unique(bids)}
+    return runs, flat[~live]
+
+
+@pytest.mark.parametrize("route", ["numpy", "native"])
 @pytest.mark.parametrize("channels", [False, True], ids=["scalar",
                                                          "per_point"])
 @pytest.mark.parametrize("direction", [0.0, 0.7])
 @pytest.mark.parametrize("tile", [4096, 64], ids=["one_tile", "tiles64"])
 def test_port_layout_is_the_jax_layout_without_ladder_padding(
-        monkeypatch, tile, direction, channels):
+        monkeypatch, tile, direction, channels, route):
     """K3 takes the JAX package's bytes (Sum: f0 is the value in both): the
     same sub-chunks in the same order, less the ladder padding at the end
-    and the all-padding sub-chunk the JAX layout gives each empty tile."""
+    and the all-padding sub-chunk the JAX layout gives each empty tile.
+
+    The two routes of routing.line_rects give the same rectangles but not
+    the same entries: the native one keeps an empty rectangle (1, 0, 1, 0)
+    for every run the home-tile clip empties, the numpy one drops it. So
+    the bytes are held against the JAX package's with both packages on
+    their numpy routes, whatever libraries they found; and the port's
+    native layout is held against the port's own numpy layout: per tile
+    run the same live rectangles with the same f0 in the same order, and
+    nothing else but empty rectangles."""
+    from pcr_tpu import native as ref_native
+    from pcr_tpu_torch import native as port_native
+    from pcr_tpu_torch.engine import routing as port_routing
     gc = make_grid_config(w=200.0, h=150.0, tile=tile)
     jeng, port = engines(monkeypatch, gc, RT.Sum)
     inp = line_inputs(gc, direction, n=6000, channels=channels)
+    pinp = like(port_pkg, inp)
+
+    if route == "native":
+        (st,) = port.prepare_line(0, *pinp)     # with whatever was found
+        rects = port_routing.line_rects(pinp[0], port.cfg, pinp[1],
+                                        *pinp[3:])
+        without_native(monkeypatch, port_native)
+        (want,) = port.prepare_line(0, *pinp)
+        assert st.kind == want.kind == "rect"
+        assert (st.th, st.wt, st.npoints) == (want.th, want.wt, want.npoints)
+        got_runs, got_rest = live_runs(st.params.numpy(), st.bids.numpy())
+        want_runs, want_rest = live_runs(want.params.numpy(),
+                                         want.bids.numpy())
+        assert sum(len(v) for v in want_runs.values()) > 0
+        # a tile that holds only empty rectangles has a run in one layout
+        # and none in the other
+        for b in set(got_runs) | set(want_runs):
+            g = got_runs.get(b, np.zeros((0, 5), np.int32))
+            w = want_runs.get(b, np.zeros((0, 5), np.int32))
+            assert np.array_equal(g, w)
+        for rest in (got_rest, want_rest):
+            assert (rest[:, :4] == [1, 0, 1, 0]).all()
+        # the rectangles themselves: the live ones and their owners agree
+        ref_rects = port_routing.line_rects(pinp[0], port.cfg, pinp[1],
+                                            *pinp[3:])
+        live = (rects.ax <= rects.bx) & (rects.ay <= rects.by)
+        for name in ("ax", "bx", "ay", "by", "owner"):
+            assert np.array_equal(getattr(rects, name)[live],
+                                  getattr(ref_rects, name))
+        dead = np.stack([rects.ax, rects.bx, rects.ay, rects.by])[:, ~live]
+        assert (dead.T == [1, 0, 1, 0]).all()
+        return
+
+    without_native(monkeypatch, ref_native, port_native)
     _, jp, jb, _ = jax_rect(jeng, inp)
-    (st,) = port.prepare_line(0, *like(port_pkg, inp))
+    (st,) = port.prepare_line(0, *pinp)
     assert st.kind == "rect" and st.npoints == len(inp[0].ix0)
     pp, pb = st.params.numpy(), st.bids.numpy()
     keep = np.isin(jb, pb)
