@@ -48,6 +48,9 @@ Phases:
       each with two fields (WeightedAverage) and one (Sum); the same
       touched footprint, bit-identical kernel reruns, atol = rtol = 1e-5
       (the same terms in another order), and both times from CUDA events;
+      each row with its live entries, the dead ones inside a tile's run
+      (none: both Line routes drop the runs a clip empties), the longest
+      and the mean tile run in sub-chunks, and the walk's records and hits;
   (i) Line pipelines on the 1000x1000 grid against the numpy oracle (1e-5
       per cell, exact NaN footprint): half length 4 WeightedAverage 1M
       staged with state_dir + GeoTIFF + resume, half length 16 direction
@@ -57,7 +60,9 @@ Phases:
       of the half length 16, 5M staged path;
   (j) kernel K6 (the rot-expand probe) through its entry point at the
       probe's defaults (nsub 64, block 2048, nq 9), then against its plain
-      version, both times from CUDA events.
+      version, both times from CUDA events; beside its bound the floor its
+      design allows: one launch (timed here on one empty step) plus the
+      longest chain of dependent adds at the card's top clock.
 Every pipeline runs with gpu_require_strict and must run on a TorchEngine
 on the card, through its kernels: each path is driven with the launch
 counters set to 0 just before it and read just after. Nothing of pcr_tpu or
@@ -84,6 +89,7 @@ TOL = 1e-5
 ORACLE_S = []           # the CPU oracle's ingest walls, for the last report
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_FLOP_S = 67e12      # H100 SXM float32 peak outside the tensor cores
+SM_CLOCK_HZ = 1.98e9    # H100 SXM top SM clock; a float32 add takes 4 clocks
 
 
 def check(cond, msg):
@@ -465,8 +471,26 @@ def rect_case(torch, pcr, lk, n, glyph, label, seed):
     check(chunk.kind == "rect", f"{label}: routed to {chunk.kind}, not rect")
     pr, b, kw = chunk.params, chunk.bids, dict(th=chunk.th, wt=chunk.wt)
     shape = p._engine._states[0][0].shape
-    live = int((pr[:, 0] <= pr[:, 1]).sum())
-    subs = int(torch.bincount(b.long()).max())
+    ncb = shape[1] // chunk.wt
+    nb_total = shape[0] // chunk.th * ncb
+    # A tile's run is its live entries, then fill up to a whole sub-chunk.
+    # An entry that is not live but has a live one after it in its run is
+    # a dead rectangle the router kept: there must be none.
+    alive = ((pr[:, 0] <= pr[:, 1]) & (pr[:, 2] <= pr[:, 3])).reshape(-1)
+    pos = torch.arange(alive.numel(), device=alive.device)
+    tile = b.long().repeat_interleave(pr.shape[2])
+    last = torch.full((nb_total,), -1, device=alive.device).scatter_reduce(
+        0, tile[alive], pos[alive], "amax")
+    live = int(alive.sum())
+    dead = int((~alive & (pos < last[tile])).sum())
+    check(dead == 0, f"K3 {label}: {dead} dead rectangles inside tile runs")
+    runs = torch.bincount(b.long(), minlength=nb_total)
+    subs = int(runs.max())
+    mean_subs = float(runs[runs > 0].float().mean())
+    records, hits = lk.rect_walk_counts(pr, b, chunk.th, chunk.wt, ncb,
+                                        nb_total)
+    plan = lk.rect_plan(chunk.th, chunk.wt)
+    del alive, pos, tile
     res = {}
     for nf in (2, 1):
         def fresh():
@@ -491,12 +515,14 @@ def rect_case(torch, pcr, lk, n, glyph, label, seed):
             lambda: lk.rect_splat_plain(scratch, pr, b, **kw), reps=5,
             plain_reps=2)
         # the bound: each run's cells inside its tile, one add a field
-        cells = window_cells(torch, b, chunk.th, chunk.wt,
-                             shape[1] // chunk.wt, pr[:, 0], pr[:, 1],
-                             pr[:, 2], pr[:, 3])
+        cells = window_cells(torch, b, chunk.th, chunk.wt, ncb, pr[:, 0],
+                             pr[:, 1], pr[:, 2], pr[:, 3])
         bms, by = bound(io_bytes(pr, b, scratch), cells * nf)
         print(f"(h) K3 {label} nf={nf}: nsub={pr.shape[0]} entries={live} "
-              f"max_subchunks_per_tile={subs} stage={stage_s:.4f}s "
+              f"dead_entries={dead} max_subchunks_per_tile={subs} "
+              f"mean_subchunks_per_tile={mean_subs:.1f} slices={plan.slices} "
+              f"threads={plan.threads} smem={plan.smem_bytes} "
+              f"records={records} walk_hits={hits} stage={stage_s:.4f}s "
               f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
               f"cells={cells:.0f} bound_ms={bms!r} ({by}) (turns: {turns})")
         res[nf] = (err, ms, plain_ms, (bms, by))
@@ -844,9 +870,21 @@ def main() -> int:
         # the bound: the probe's out is nsub expansions of p, each
         # 128 outputs x nq x block / 4 adds; p read once, out written once
         k6_bound = bound(nq * block * 4 + 128 * 4, nsub * nq * block * 32)
+        # the floor the design allows: one launch (one step with one add
+        # a lane, through the same wrapper) plus a thread's longest chain
+        # of dependent adds, 4 clocks each
+        tiny = torch.zeros((1, 4), device="cuda")
+        launch_ms, _, _ = time_turns(
+            torch, lambda: k6.rot_expand(tiny, 1, "smem"),
+            lambda: k6.rot_expand_plain(tiny, 1), reps=20, plain_reps=20)
+        chain = k6.longest_chain(nsub, nq, block)
+        floor_ms = launch_ms + chain * 4 / SM_CLOCK_HZ * 1e3
         print(f"(j) K6 smem vs plain: max_abs_err={k6_err!r} "
               f"kernel_ms={k6_ms!r} plain_ms={k6_plain_ms!r} "
-              f"bound_ms={k6_bound[0]!r} ({k6_bound[1]}) (turns: {turns})")
+              f"bound_ms={k6_bound[0]!r} ({k6_bound[1]}) "
+              f"floor_ms={floor_ms!r} (one launch {launch_ms!r} + a chain "
+              f"of {chain} adds; split={k6.split_of(nsub, block)}) "
+              f"(turns: {turns})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

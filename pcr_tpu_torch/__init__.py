@@ -27,7 +27,7 @@ meshes are refused on the device path (NotImplemented) and run on the CPU
 backend.
 """
 
-__version__ = "0.4.0"   # the port's own: its fourth slice
+__version__ = "0.5.0"   # the port's own: its fifth slice
 
 from .core.device import (
     cuda_device_available,

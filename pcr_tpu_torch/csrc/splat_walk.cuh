@@ -1,6 +1,7 @@
-// What the window-aware splats (K2, K4, K5) share: the CTA's shape, the
-// search for the end of a tile run, and the asynchronous staging of a
-// sub-chunk's entries in pieces.
+// What the window-aware splats (K2, K4, K5) and the rect splat (K3) share:
+// the CTA's shape (K3 stacks two such slices in one CTA), the search for the
+// end of a tile run, and the asynchronous staging of a sub-chunk's entries
+// in pieces.
 //
 // One CTA of kThreads = 128 threads owns kSliceRows x kSliceCols = 8 x 128
 // cells of one state tile: blockIdx.x is the first sub-chunk of the tile's
@@ -56,8 +57,8 @@ __device__ __forceinline__ int64_t run_end(const int32_t* __restrict__ bids,
 // Start the copy of piece `q` of the run (NSEG segments x P entries, 4 B
 // each) into dst[seg * P + e] and commit it as one cp.async group. `run` is
 // the run's first sub-chunk; sub-chunks are NSEG x kBlock words, 16-byte
-// aligned.
-template <int NSEG, int P>
+// aligned. T is the CTA's thread count.
+template <int NSEG, int P, int T = kThreads>
 __device__ __forceinline__ void stage_piece(void* dst, const void* run,
                                             int64_t q) {
   constexpr int kPieces = kBlock / P;
@@ -65,7 +66,7 @@ __device__ __forceinline__ void stage_piece(void* dst, const void* run,
   const auto* src = static_cast<const int32_t*>(run) +
                     (q / kPieces) * NSEG * kBlock + (q % kPieces) * P;
   auto* d = static_cast<int32_t*>(dst);
-  for (int k = threadIdx.x; k < NSEG * kVecs; k += kThreads) {
+  for (int k = threadIdx.x; k < NSEG * kVecs; k += T) {
     const int seg = k / kVecs, v = k % kVecs;
     cp_async16(d + seg * P + 4 * v, src + seg * kBlock + 4 * v);
   }

@@ -655,6 +655,50 @@ void pcr_pack_quad_major(const int64_t* slots, const int64_t* idx,
 // run: [ax, bx] x [ay, by] plus the owning point index.
 // ---------------------------------------------------------------------------
 
+// The runs of line i that the clip leaves a cell, in staircase order:
+// live(ax, bx, ay, by) is called for each. clip_* are the line's home-tile
+// cell range (end-exclusive).
+template <typename F>
+static inline void line_live_runs(int32_t x0, int32_t y0, int32_t x1,
+                                  int32_t y1, int32_t cs, int32_t rs,
+                                  int32_t ce, int32_t re, F&& live)
+{
+    const int64_t ddx = std::abs((int64_t)x1 - x0);
+    const int64_t ddy = std::abs((int64_t)y1 - y0);
+    const bool xmaj = ddx >= ddy;
+    const int64_t dmaj = xmaj ? ddx : ddy;
+    const int64_t dmin = xmaj ? ddy : ddx;
+    const int32_t sx = x0 < x1 ? 1 : -1;
+    const int32_t sy = y0 < y1 ? 1 : -1;
+    const int64_t maj0 = xmaj ? x0 : y0;
+    const int32_t smaj = xmaj ? sx : sy;
+    const int64_t min0 = xmaj ? y0 : x0;
+    const int32_t smin = xmaj ? sy : sx;
+    int64_t k0 = 0;
+    for (int64_t j = 0; j <= dmin; ++j) {
+        // k range of run j: [k0, k1]
+        const int64_t k1 = (j < dmin)
+            ? (dmaj * (2 * j + 1)) / (2 * dmin)   // start of run j+1, -1
+            : dmaj;
+        const int64_t p0 = maj0 + (int64_t)smaj * k0;
+        const int64_t p1 = maj0 + (int64_t)smaj * k1;
+        const int64_t lo = p0 < p1 ? p0 : p1;
+        const int64_t hi = p0 < p1 ? p1 : p0;
+        const int64_t minor = min0 + (int64_t)smin * j;
+        int64_t ax = xmaj ? lo : minor;
+        int64_t bx = xmaj ? hi : minor;
+        int64_t ay = xmaj ? minor : lo;
+        int64_t by = xmaj ? minor : hi;
+        if (ax < cs) ax = cs;
+        if (bx > ce - 1) bx = ce - 1;
+        if (ay < rs) ay = rs;
+        if (by > re - 1) by = re - 1;
+        if (ax <= bx && ay <= by)
+            live((int32_t)ax, (int32_t)bx, (int32_t)ay, (int32_t)by);
+        k0 = k1 + 1;
+    }
+}
+
 extern "C" {
 
 // Pass 1: total run count over valid lines.
@@ -674,7 +718,9 @@ int64_t pcr_line_runs_count(const int32_t* ix0, const int32_t* iy0,
 }
 
 // Pass 2: emit clipped runs. clip_* give each point's home-tile cell range
-// (end-exclusive). Returns the number of emitted (non-empty) rects.
+// (end-exclusive). Runs that the clip empties are dropped, as the numpy
+// route drops them (routing.line_rects). Returns the number of emitted
+// rects, at most pcr_line_runs_count's.
 int64_t pcr_line_runs_emit(const int32_t* ix0, const int32_t* iy0,
                            const int32_t* ix1, const int32_t* iy1,
                            const uint8_t* valid,
@@ -685,68 +731,36 @@ int64_t pcr_line_runs_emit(const int32_t* ix0, const int32_t* iy0,
                            int32_t* out_ay, int32_t* out_by,
                            int32_t* out_owner)
 {
-    // per-line output offsets (prefix over run counts) so the emit loop is
-    // embarrassingly parallel; fully-clipped runs stay as inert empty
-    // rectangles (ax > bx) that the splat kernel's interval masks zero out
+    // per-line output offsets (prefix over the live run counts) so the emit
+    // loop is embarrassingly parallel: the staircase is walked twice, once
+    // to count and once to write
     std::vector<int64_t> offs(n + 1, 0);
+#pragma omp parallel for schedule(static)
     for (int64_t i = 0; i < n; ++i) {
         int64_t runs = 0;
-        if (valid[i]) {
-            const int64_t ddx = std::abs((int64_t)ix1[i] - ix0[i]);
-            const int64_t ddy = std::abs((int64_t)iy1[i] - iy0[i]);
-            runs = (ddx < ddy ? ddx : ddy) + 1;
-        }
-        offs[i + 1] = offs[i] + runs;
+        if (valid[i])
+            line_live_runs(ix0[i], iy0[i], ix1[i], iy1[i], clip_cs[i],
+                           clip_rs[i], clip_ce[i], clip_re[i],
+                           [&](int32_t, int32_t, int32_t, int32_t) {
+                               ++runs;
+                           });
+        offs[i + 1] = runs;
     }
+    for (int64_t i = 0; i < n; ++i) offs[i + 1] += offs[i];
 #pragma omp parallel for schedule(static)
     for (int64_t i = 0; i < n; ++i) {
         if (!valid[i]) continue;
         int64_t m = offs[i];
-        const int64_t ddx = std::abs((int64_t)ix1[i] - ix0[i]);
-        const int64_t ddy = std::abs((int64_t)iy1[i] - iy0[i]);
-        const bool xmaj = ddx >= ddy;
-        const int64_t dmaj = xmaj ? ddx : ddy;
-        const int64_t dmin = xmaj ? ddy : ddx;
-        const int32_t sx = ix0[i] < ix1[i] ? 1 : -1;
-        const int32_t sy = iy0[i] < iy1[i] ? 1 : -1;
-        const int64_t maj0 = xmaj ? ix0[i] : iy0[i];
-        const int32_t smaj = xmaj ? sx : sy;
-        const int64_t min0 = xmaj ? iy0[i] : ix0[i];
-        const int32_t smin = xmaj ? sy : sx;
-        const int32_t cs = clip_cs[i], ce = clip_ce[i];
-        const int32_t rs = clip_rs[i], re = clip_re[i];
-        int64_t k0 = 0;
-        for (int64_t j = 0; j <= dmin; ++j) {
-            // k range of run j: [k0, k1]
-            const int64_t k1 = (j < dmin)
-                ? (dmaj * (2 * j + 1)) / (2 * dmin)   // start of run j+1, -1
-                : dmaj;
-            const int64_t p0 = maj0 + (int64_t)smaj * k0;
-            const int64_t p1 = maj0 + (int64_t)smaj * k1;
-            const int64_t lo = p0 < p1 ? p0 : p1;
-            const int64_t hi = p0 < p1 ? p1 : p0;
-            const int64_t minor = min0 + (int64_t)smin * j;
-            int64_t ax = xmaj ? lo : minor;
-            int64_t bx = xmaj ? hi : minor;
-            int64_t ay = xmaj ? minor : lo;
-            int64_t by = xmaj ? minor : hi;
-            if (ax < cs) ax = cs;
-            if (bx > ce - 1) bx = ce - 1;
-            if (ay < rs) ay = rs;
-            if (by > re - 1) by = re - 1;
-            if (ax <= bx && ay <= by) {
-                out_ax[m] = (int32_t)ax;
-                out_bx[m] = (int32_t)bx;
-                out_ay[m] = (int32_t)ay;
-                out_by[m] = (int32_t)by;
-            } else {
-                out_ax[m] = 1; out_bx[m] = 0;   // inert empty rectangle
-                out_ay[m] = 1; out_by[m] = 0;
-            }
-            out_owner[m] = (int32_t)i;
-            ++m;
-            k0 = k1 + 1;
-        }
+        line_live_runs(ix0[i], iy0[i], ix1[i], iy1[i], clip_cs[i],
+                       clip_rs[i], clip_ce[i], clip_re[i],
+                       [&](int32_t ax, int32_t bx, int32_t ay, int32_t by) {
+                           out_ax[m] = ax;
+                           out_bx[m] = bx;
+                           out_ay[m] = ay;
+                           out_by[m] = by;
+                           out_owner[m] = (int32_t)i;
+                           ++m;
+                       });
     }
     return offs[n];
 }

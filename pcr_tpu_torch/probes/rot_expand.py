@@ -10,9 +10,12 @@ lane expansion for K5's packed variant). It computes the same `out`:
 for p (nq, block) float32. On Hopper the probe asks what it costs to hand
 per-entry scalars to the threads that own a tile's cells; its variants
 (`smem`: staged in shared memory, K5's pattern; `loop`: read straight from
-device memory) are described in `csrc/rot_expand_probe.cu`. The TPU
-variants (`repeat`, `jrepeat`, `bcast4`, the `wire4_*` forms) are lane
-layouts of the TPU's vector unit and are not carried over.
+device memory) and the fixed order of its sums are described in
+`csrc/rot_expand_probe.cu`. It is one launch: a lane's adds of one step are
+spread over `split_of(nsub, block)` CTAs of 8 groups of 128 lanes, and the
+CTA that finishes last adds the partial rows. The TPU variants (`repeat`,
+`jrepeat`, `bcast4`, the `wire4_*` forms) are lane layouts of the TPU's
+vector unit and are not carried over.
 
     python -m pcr_tpu_torch.probes.rot_expand [--nsub 64] [--block 2048]
         [--nq 9] [--variants smem loop]
@@ -34,13 +37,18 @@ import torch
 
 from ..engine import _build
 
-__all__ = ["VARIANTS", "atol", "rot_expand", "rot_expand_plain", "run"]
+__all__ = ["VARIANTS", "atol", "longest_chain", "rot_expand",
+           "rot_expand_plain", "run", "split_of"]
 
 VARIANTS = ("smem", "loop")
 _MAX_SMEM = 227 * 1024          # a CTA's shared memory on Hopper
 _REPS = 20                      # launches per timing, as the TPU probe
+_GROUPS = 8                     # groups of 128 lanes a CTA (the kernel's)
+_CHAINS = 4                     # independent sums a thread (the kernel's)
+_SMS = 132                      # an H100's multiprocessors
 
 _BOUND = None
+_DONE = {}                      # (device index, stream) -> the CTAs' counter
 
 
 def _lib():
@@ -48,9 +56,13 @@ def _lib():
     if _BOUND is None:
         lib = _build.load()
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.pcr_rot_expand_probe.argtypes = [vp, i32, i32, i32, i32, vp, vp,
-                                             vp]
+        lib.pcr_rot_expand_probe.argtypes = [vp] + [i32] * 5 + [vp] * 4
         lib.pcr_rot_expand_probe.restype = i32
+        lib.pcr_rot_expand_groups.argtypes = []
+        lib.pcr_rot_expand_groups.restype = i32
+        if lib.pcr_rot_expand_groups() != _GROUPS:
+            raise RuntimeError("rot_expand: the kernel's groups differ from "
+                               "_GROUPS")
         _BOUND = lib
     return _BOUND
 
@@ -70,6 +82,34 @@ def _check(p: torch.Tensor, nsub: int, variant: str) -> None:
                          f"tensors")
 
 
+def _launch(p, nsub, variant, split, buf, index) -> int:
+    """Launch K6 on device `index`'s current stream; the cudaError_t."""
+    stream = torch.cuda.current_stream(index).cuda_stream
+    # the counter of finished CTAs: 0 before every launch and 0 again
+    # after it, one per stream, since launches on one stream run in turn
+    done = _DONE.get((index, stream))
+    if done is None:
+        done = _DONE[(index, stream)] = torch.zeros(
+            1, dtype=torch.int32, device=p.device)
+    ptr = buf.data_ptr()
+    return _lib().pcr_rot_expand_probe(
+        p.data_ptr(), p.shape[0], p.shape[1], nsub, VARIANTS.index(variant),
+        split, ptr, done.data_ptr(), ptr + 512 * nsub * split, stream)
+
+
+def split_of(nsub: int, block: int) -> int:
+    """The CTAs one step's g's are shared among: about one CTA an SM over
+    the launch, at least one g a group of lanes."""
+    return max(1, min(_SMS // nsub, block // 4 // _GROUPS, 8))
+
+
+def longest_chain(nsub: int, nq: int, block: int) -> int:
+    """The most dependent adds one thread of the kernel makes: its share
+    of a step's g's over its chains, nq adds a g."""
+    share = -(-(block // 4) // split_of(nsub, block))
+    return -(-(-(-share // _GROUPS)) // _CHAINS) * nq
+
+
 def rot_expand(p: torch.Tensor, nsub: int, variant: str = "smem"
                ) -> torch.Tensor:
     """K6: the (1, 128) probe output for params p (nq, block)."""
@@ -77,20 +117,27 @@ def rot_expand(p: torch.Tensor, nsub: int, variant: str = "smem"
     if p.device.type == "cpu":
         return rot_expand_plain(p, nsub)
     nq, block = p.shape
-    if variant == "smem" and nq * block * 4 > _MAX_SMEM:
-        raise ValueError(f"rot_expand: smem stages {nq * block * 4} B, over "
-                         f"a CTA's {_MAX_SMEM}")
-    partial = torch.empty((nsub, 128), dtype=torch.float32, device=p.device)
-    out = torch.empty((1, 128), dtype=torch.float32, device=p.device)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = _lib().pcr_rot_expand_probe(
-            p.data_ptr(), nq, block, nsub, VARIANTS.index(variant),
-            partial.data_ptr(), out.data_ptr(), stream)
+    split = split_of(nsub, block)
+    if variant == "smem" and nq * -(-block // 4 // split) * 16 > _MAX_SMEM:
+        raise ValueError(f"rot_expand: smem stages "
+                         f"{nq * -(-block // 4 // split) * 16} B a CTA, "
+                         f"over a CTA's {_MAX_SMEM}")
+    if p.data_ptr() % 16:
+        raise ValueError("rot_expand: the kernel copies params 16 bytes at "
+                         "a time and takes them 16-byte aligned")
+    # one buffer: the nsub * split partial rows, then the output row
+    rows = nsub * split
+    buf = torch.empty((rows + 1, 128), dtype=torch.float32, device=p.device)
+    index = p.device.index
+    if torch.cuda.current_device() == index:
+        err = _launch(p, nsub, variant, split, buf, index)
+    else:
+        with torch.cuda.device(index):
+            err = _launch(p, nsub, variant, split, buf, index)
     if err != 0:
         raise RuntimeError(f"rot_expand: launch failed (cudaError {err})")
     rot_expand.launches += 1
-    return out
+    return buf[rows:]
 
 
 rot_expand.launches = 0

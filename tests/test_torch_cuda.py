@@ -14,8 +14,10 @@ bit-identical, and the pipeline against the numpy CPU oracle. K2, K4 and K5
 likewise, at a tolerance that grows with the terms per cell (gauss_rtol);
 the walks of K2 and K4 also on points at the borders of their slices, blocks
 and tiles.
-K3 (Line runs) at 1e-5, with the same touched cells; K6 (the rot-expand
-probe) at the probe's rtol = 1e-4 with atol = rot_expand.atol(...).
+K3 (Line runs) at 1e-5, with the same touched cells, and bit for bit
+against the plain version run on the CPU (both add a cell's terms in entry
+order) on runs at the borders of its slices; K6 (the rot-expand probe) at
+the probe's rtol = 1e-4 with atol = rot_expand.atol(...).
 """
 
 import numpy as np
@@ -550,9 +552,15 @@ def test_line_pipeline_on_the_card_matches_oracle(card, glyph, monkeypatch):
 
 
 @pytest.mark.parametrize("variant", ["smem", "loop"])
-def test_k6_matches_plain_and_reruns_bit_identical(card, variant):
+@pytest.mark.parametrize("nsub,nq,block", [
+    (64, 9, 2048),      # the probe's defaults: two CTAs a step
+    (5, 7, 2044),       # 511 g's: ragged shares, groups and chains
+    (700, 2, 4),        # one g: seven groups of eight have nothing to add
+    (3, 28, 2048),      # 56 KB a CTA: over the default shared memory
+])
+def test_k6_matches_plain_and_reruns_bit_identical(card, variant, nsub, nq,
+                                                   block):
     from pcr_tpu_torch.probes import rot_expand as k6
-    nsub, nq, block = 64, 9, 2048
     p = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (nq, block), dtype=np.float32)).to(card)
     before = k6.rot_expand.launches
@@ -565,12 +573,94 @@ def test_k6_matches_plain_and_reruns_bit_identical(card, variant):
                                atol=k6.atol(nsub, nq, block))
 
 
+def test_k6_refuses_unaligned_params(card):
+    """cp.async copies 16 bytes at a time."""
+    from pcr_tpu_torch.probes import rot_expand as k6
+    p = torch.zeros(3 * 256 + 1, device=card)[1:].view(3, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        k6.rot_expand(p, 2, "smem")
+
+
+def k3_border_entries(th, wt, seed):
+    """K3 entries on a 2 x 2 grid of (th, wt) tiles where the walk's cases
+    meet: 1-row runs that straddle the 32-column blocks and 128-column
+    slices, 1-column runs through several 8-row slices, runs across the
+    tile's edges, dead entries; tile 0 holds a run of five sub-chunks,
+    tile 2 nothing but dead entries. Values span 1e-3..1e3 with both signs.
+    Returns numpy (params, bids)."""
+    rng = np.random.default_rng(seed)
+    block = kernels.BLOCK
+    bids = np.array([0] * 5 + [1, 2, 3, 3], np.int32)
+    shape = (len(bids), block)
+    r0, c0 = (bids // 2 * th)[:, None], (bids % 2 * wt)[:, None]
+    kind = rng.integers(0, 4, shape)
+    # a border of a block or slice, and a start a few cells before it
+    bx = c0 + 32 * rng.integers(0, wt // 32 + 1, shape)
+    by = r0 + 8 * rng.integers(0, th // 8 + 1, shape)
+    ax = np.where(kind < 2, bx - rng.integers(0, 6, shape),
+                  c0 + rng.integers(-6, wt + 2, shape))
+    ay = np.where(kind >= 2, by - rng.integers(0, 6, shape),
+                  np.where(kind == 1, by - rng.integers(0, 2, shape),
+                           r0 + rng.integers(-6, th + 2, shape)))
+    length = rng.integers(0, 45, shape)
+    horizontal = kind < 2
+    params = np.stack([ax, ax + np.where(horizontal, length, 0), ay,
+                       ay + np.where(horizontal, 0, length),
+                       (rng.normal(size=shape)
+                        * 10.0 ** rng.integers(-3, 4, shape)).astype(
+                            np.float32).view(np.int32)], 1).astype(np.int32)
+    dead = (rng.uniform(size=shape) < 0.05) | (bids == 2)[:, None]
+    for seg, fill in enumerate((1, 0, 1, 0)):
+        params[:, seg][dead] = fill
+    return params, bids
+
+
+@pytest.mark.parametrize("nf", [1, 2])
+@pytest.mark.parametrize("th,wt", [(128, 128), (128, 64), (128, 256),
+                                   (24, 192)])
+def test_k3_on_slice_borders_matches_the_cpu_bits(card, th, wt, nf):
+    """Both the kernel and the plain version on the CPU add a cell's terms
+    in entry order to the state's value, so they agree bit for bit, on
+    adversarial values and a random initial state; reruns too."""
+    from pcr_tpu_torch.engine import line_kernels as lk
+    params, bids = k3_border_entries(th, wt, th + wt + nf)
+    rng = np.random.default_rng(1)
+    init = [torch.from_numpy(rng.normal(size=(2 * th, 2 * wt)).astype(
+        np.float32)) for _ in range(nf)]
+    want = [s.clone() for s in init]
+    lk.rect_splat_plain(want, torch.from_numpy(params),
+                        torch.from_numpy(bids), th=th, wt=wt)
+    got, again = ([s.to(card) for s in init] for _ in range(2))
+    p, b = torch.from_numpy(params).to(card), torch.from_numpy(bids).to(card)
+    before = lk.rect_splat.launches
+    lk.rect_splat(got, p, b, th=th, wt=wt)
+    lk.rect_splat(again, p, b, th=th, wt=wt)
+    assert lk.rect_splat.launches == before + 2
+    torch.cuda.synchronize()
+    tile2 = (slice(th, 2 * th), slice(0, wt))
+    for g, a, w, s in zip(got, again, want, init):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+        assert torch.equal(w[tile2], s[tile2]) and not torch.equal(w, s)
+
+
+def test_k3_refuses_unaligned_params(card):
+    """cp.async copies 16 bytes at a time."""
+    from pcr_tpu_torch.engine import line_kernels as lk
+    states = [torch.zeros(128, 128, device=card)]
+    flat = torch.zeros(5 * 2048 + 1, dtype=torch.int32, device=card)
+    params = flat[1:].view(1, 5, 2048)
+    bids = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        lk.rect_splat(states, params, bids, th=128, wt=128)
+
+
 @pytest.mark.parametrize("rtype", [RT.Average, RT.Count], ids=["nf2", "nf1"])
 @pytest.mark.parametrize("wt", [64, 256])
 def test_k3_other_tile_widths(card, wt, rtype, monkeypatch):
     """PCR_RECT_W_TILE (the JAX package's knob, read by rect_col_tile)
-    gives K3 tiles of 64 columns (warps that own none) or 256 (two column
-    passes per thread, two row bands per slice with two fields)."""
+    gives K3 tiles of 64 columns (half a slice's threads own no cell) or
+    256 (two column slices a row slice)."""
     from pcr_tpu_torch.engine import line_kernels as lk
     monkeypatch.setenv("PCR_RECT_W_TILE", str(wt))
     p = pcr.Pipeline.create(pcr.PipelineConfig(

@@ -136,16 +136,6 @@ def without_native(monkeypatch, *natives):
         monkeypatch.setattr(nat, "_TRIED", True)
 
 
-def live_runs(params, bids):
-    """Per tile id, the live rectangles [ax, bx, ay, by, f0 bits] of its
-    run in entry order, and the entries left over."""
-    flat = params.transpose(0, 2, 1).reshape(-1, 5)
-    tile = np.repeat(bids, params.shape[2])
-    live = flat[:, 0] <= flat[:, 1]
-    runs = {int(b): flat[live & (tile == b)] for b in np.unique(bids)}
-    return runs, flat[~live]
-
-
 @pytest.mark.parametrize("route", ["numpy", "native"])
 @pytest.mark.parametrize("channels", [False, True], ids=["scalar",
                                                          "per_point"])
@@ -157,14 +147,13 @@ def test_port_layout_is_the_jax_layout_without_ladder_padding(
     same sub-chunks in the same order, less the ladder padding at the end
     and the all-padding sub-chunk the JAX layout gives each empty tile.
 
-    The two routes of routing.line_rects give the same rectangles but not
-    the same entries: the native one keeps an empty rectangle (1, 0, 1, 0)
-    for every run the home-tile clip empties, the numpy one drops it. So
-    the bytes are held against the JAX package's with both packages on
-    their numpy routes, whatever libraries they found; and the port's
-    native layout is held against the port's own numpy layout: per tile
-    run the same live rectangles with the same f0 in the same order, and
-    nothing else but empty rectangles."""
+    The two routes of the port's routing.line_rects give the same arrays:
+    both drop every run the home-tile or grid clip empties. The JAX
+    package's native route keeps an empty rectangle (1, 0, 1, 0) for each,
+    so the bytes are held against the JAX package's only with both
+    packages on their numpy routes, whatever libraries they found; and the
+    port's native layout is held against the port's own numpy layout, byte
+    for byte, as are the rectangles field by field."""
     from pcr_tpu import native as ref_native
     from pcr_tpu_torch import native as port_native
     from pcr_tpu_torch.engine import routing as port_routing
@@ -181,27 +170,17 @@ def test_port_layout_is_the_jax_layout_without_ladder_padding(
         (want,) = port.prepare_line(0, *pinp)
         assert st.kind == want.kind == "rect"
         assert (st.th, st.wt, st.npoints) == (want.th, want.wt, want.npoints)
-        got_runs, got_rest = live_runs(st.params.numpy(), st.bids.numpy())
-        want_runs, want_rest = live_runs(want.params.numpy(),
-                                         want.bids.numpy())
-        assert sum(len(v) for v in want_runs.values()) > 0
-        # a tile that holds only empty rectangles has a run in one layout
-        # and none in the other
-        for b in set(got_runs) | set(want_runs):
-            g = got_runs.get(b, np.zeros((0, 5), np.int32))
-            w = want_runs.get(b, np.zeros((0, 5), np.int32))
-            assert np.array_equal(g, w)
-        for rest in (got_rest, want_rest):
-            assert (rest[:, :4] == [1, 0, 1, 0]).all()
-        # the rectangles themselves: the live ones and their owners agree
+        assert (want.params[:, 0] <= want.params[:, 1]).any()
+        assert torch.equal(st.bids, want.bids)
+        assert torch.equal(st.params, want.params)
         ref_rects = port_routing.line_rects(pinp[0], port.cfg, pinp[1],
                                             *pinp[3:])
-        live = (rects.ax <= rects.bx) & (rects.ay <= rects.by)
+        assert len(ref_rects.owner) > 0
         for name in ("ax", "bx", "ay", "by", "owner"):
-            assert np.array_equal(getattr(rects, name)[live],
-                                  getattr(ref_rects, name))
-        dead = np.stack([rects.ax, rects.bx, rects.ay, rects.by])[:, ~live]
-        assert (dead.T == [1, 0, 1, 0]).all()
+            got, ref_arr = getattr(rects, name), getattr(ref_rects, name)
+            assert got.dtype == ref_arr.dtype
+            assert np.array_equal(got, ref_arr)
+        assert (rects.ax <= rects.bx).all() and (rects.ay <= rects.by).all()
         return
 
     without_native(monkeypatch, ref_native, port_native)
@@ -215,6 +194,48 @@ def test_port_layout_is_the_jax_layout_without_ladder_padding(
     assert np.array_equal(jp[keep][: len(pb)], pp)
     tail = jp[keep][len(pb):]
     assert (tail[:, 0] == 1).all() and (jb[keep][len(pb):] == pb[-1]).all()
+
+
+@pytest.mark.parametrize("route", ["found", "numpy"])
+def test_lines_clipped_away_leave_no_entry(monkeypatch, route):
+    """Lines whose every run lies outside their home tile stage nothing:
+    no rectangle comes back empty, every entry lies in a tile its
+    rectangle meets, the layout holds nothing but those and the sub-chunk
+    padding, and tile 0's run is no longer than the numpy route's."""
+    from pcr_tpu_torch import native as port_native
+    from pcr_tpu_torch.engine import routing as port_routing
+    from pcr_tpu_torch.engine.kernels import BLOCK, TH
+    gc = make_grid_config(w=200.0, h=150.0, tile=64)
+    _, port = engines(monkeypatch, gc, RT.Sum)
+    lp, valid, values, col, row = like(
+        port_pkg, line_inputs(gc, 0.7, n=6000))
+    # two lines in three keep their home tile but lie a tile away from it
+    away = np.arange(len(col)) % 3 != 0
+    for name, shift in (("ix0", 64), ("ix1", 64), ("iy0", 64), ("iy1", 64)):
+        arr = getattr(lp, name)
+        setattr(lp, name, np.where(away, arr + shift, arr).astype(arr.dtype))
+    if route == "numpy":
+        without_native(monkeypatch, port_native)
+    rects = port_routing.line_rects(lp, port.cfg, valid, col, row)
+    assert (rects.ax <= rects.bx).all() and (rects.ay <= rects.by).all()
+    assert 0 < len(np.unique(rects.owner)) < valid.sum() / 2
+    (st,) = port.prepare_line(0, lp, valid, values, col, row)
+    without_native(monkeypatch, port_native)
+    (want,) = port.prepare_line(0, lp, valid, values, col, row)
+    assert (st.bids == 0).sum() <= (want.bids == 0).sum()
+    p, b = st.params.numpy(), st.bids.numpy()
+    ncb = port.W_state // st.wt
+    r0, c0 = (b // ncb * TH)[:, None], (b % ncb * st.wt)[:, None]
+    live = p[:, 0] <= p[:, 1]
+    meets = ((p[:, 0] <= c0 + st.wt - 1) & (p[:, 1] >= c0)
+             & (p[:, 2] <= r0 + TH - 1) & (p[:, 3] >= r0))
+    assert live.any() and (meets | ~live).all()
+    # what is not live is sub-chunk padding: under BLOCK entries a tile
+    per_tile = np.bincount(b, weights=live.sum(1), minlength=b.max() + 1)
+    subs = np.bincount(b, minlength=b.max() + 1)
+    assert ((subs * BLOCK - per_tile < BLOCK) | (subs == 0)).all()
+    pad = p.transpose(0, 2, 1)[~live]
+    assert (pad[:, :4] == [1, 0, 1, 0]).all()
 
 
 def test_count_layout_adds_one_per_cell(monkeypatch):
@@ -284,6 +305,49 @@ def test_plain_matches_contract_at_any_tile(th, wt, nf):
         assert_close(g.numpy(), w)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("th,wt,nf", [(16, 128, 2), (32, 256, 1),
+                                      (128, 64, 2), (20, 192, 2)])
+def test_plain_slice_by_slice_gives_the_same_bits(th, wt, nf, seed):
+    """What the card's kernel rests on: a cell takes its terms in entry
+    order whoever owns it, so folding each entry's part in one 8-row x
+    128-column slice of its tile at a time, the slices in any order, gives
+    the bits of one call (mixed-sign values on a random initial state)."""
+    rng = np.random.default_rng(1000 * seed + th + wt + nf)
+    h_pad, w_pad, block = 2 * th, 2 * wt, 96
+    bids = np.sort(rng.integers(0, 4, 9)).astype(np.int32)
+    r0, c0 = (bids // 2 * th)[:, None], (bids % 2 * wt)[:, None]
+    ax = c0 + rng.integers(-6, wt + 2, (len(bids), block))
+    ay = r0 + rng.integers(-6, th + 2, (len(bids), block))
+    horizontal = rng.uniform(size=ax.shape) < 0.5
+    long = rng.integers(0, 40, ax.shape)
+    params = np.stack([ax, ax + np.where(horizontal, long, 0), ay,
+                       ay + np.where(horizontal, 0, long),
+                       (rng.normal(size=ax.shape)
+                        * 10.0 ** rng.integers(-3, 4, ax.shape)).astype(
+                            np.float32).view(np.int32)], 1).astype(np.int32)
+    params[:, :4, :3] = np.array([1, 0, 1, 0])[:, None]          # padding
+    states = [rng.normal(size=(h_pad, w_pad)).astype(np.float32)
+              for _ in range(nf)]
+    whole = [torch.from_numpy(s.copy()) for s in states]
+    lk.rect_splat_plain(whole, torch.from_numpy(params),
+                        torch.from_numpy(bids), th=th, wt=wt)
+    sliced = [torch.from_numpy(s.copy()) for s in states]
+    slices = [(i, k) for i in range(-(-th // 8)) for k in range(-(-wt // 128))]
+    for n in rng.permutation(len(slices)):
+        i, k = slices[n]
+        cut = params.copy()
+        cut[:, 0] = np.maximum(params[:, 0], c0 + 128 * k)
+        cut[:, 1] = np.minimum(params[:, 1], c0 + 128 * k + 127)
+        cut[:, 2] = np.maximum(params[:, 2], r0 + 8 * i)
+        cut[:, 3] = np.minimum(params[:, 3], r0 + 8 * i + 7)
+        lk.rect_splat_plain(sliced, torch.from_numpy(cut),
+                            torch.from_numpy(bids), th=th, wt=wt)
+    for a, b, s0 in zip(whole, sliced, states):
+        assert not torch.equal(a, torch.from_numpy(s0))
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_plain_budget_splits_keep_entry_order(monkeypatch):
     """A budget far below the cells of one launch gives the same bits: the
     chunks follow entry order."""
@@ -331,6 +395,54 @@ def test_lines_with_no_run_stage_only_padding(monkeypatch):
     assert (st.params[0, 0] == 1).all() and (st.params[0, 1] == 0).all()
     port.commit(0, [st])
     assert not any(s.any() for s in port._states[0])
+
+
+@pytest.mark.parametrize("th,wt,slices", [(128, 128, 8), (128, 64, 8),
+                                          (128, 256, 16), (24, 192, 4),
+                                          (5, 300, 3)])
+def test_rect_plan_takes_any_tile(th, wt, slices):
+    """One CTA a band of 16 rows x 128 columns, ragged bands included."""
+    plan = lk.rect_plan(th, wt)
+    assert plan.slices == slices and plan.grid(7) == (7, slices)
+    assert plan.threads == 256 and plan.smem_bytes == 9 * 4 * lk.RECT_PIECE
+    with pytest.raises(ValueError):
+        lk.rect_plan(0, 128)
+
+
+@pytest.mark.parametrize("th,wt", [(128, 128), (24, 192)])
+def test_rect_walk_counts_match_a_loop(th, wt):
+    """Records: the bands of 16 rows x 128 columns an entry's rectangle
+    meets inside its tile; hits: its rows there times the 32-column blocks
+    it meets."""
+    rng = np.random.default_rng(th + wt)
+    block, ncb, nb_total = 48, 2, 4
+    bids = np.sort(rng.integers(-1, nb_total + 1, 8)).astype(np.int32)
+    tile = np.clip(bids, 0, nb_total - 1)
+    r0, c0 = (tile // ncb * th)[:, None], (tile % ncb * wt)[:, None]
+    ax = c0 + rng.integers(-6, wt + 2, (len(bids), block))
+    ay = r0 + rng.integers(-6, th + 2, (len(bids), block))
+    horizontal = rng.uniform(size=ax.shape) < 0.5
+    long = rng.integers(0, 70, ax.shape)
+    params = np.stack([ax, ax + np.where(horizontal, long, 0), ay,
+                       ay + np.where(horizontal, 0, long),
+                       np.zeros_like(ax)], 1).astype(np.int32)
+    params[:, :4, :3] = np.array([1, 0, 1, 0])[:, None]
+    records = hits = 0
+    for j, bid in enumerate(bids):
+        if not 0 <= bid < nb_total:
+            continue
+        for x0, x1, y0, y1 in params[j, :4].T:
+            cj, rj = c0[j, 0], r0[j, 0]
+            x0, x1 = max(x0, cj) - cj, min(x1, cj + wt - 1) - cj
+            y0, y1 = max(y0, rj) - rj, min(y1, rj + th - 1) - rj
+            if x0 > x1 or y0 > y1:
+                continue
+            records += (y1 // 16 - y0 // 16 + 1) * (x1 // 128 - x0 // 128 + 1)
+            hits += (y1 - y0 + 1) * (x1 // 32 - x0 // 32 + 1)
+    assert records > 0
+    assert lk.rect_walk_counts(torch.from_numpy(params),
+                               torch.from_numpy(bids), th, wt, ncb,
+                               nb_total) == (records, hits)
 
 
 def _k3_inputs():
@@ -398,6 +510,19 @@ def test_k6_plain_matches_tpu_probe(variant, nsub, block, nq):
         assert np.allclose(got, want, rtol=1e-4,
                            atol=k6.atol(nsub, nq, block))
     assert len(np.unique(want)) <= 4         # one value per lane quarter
+
+
+@pytest.mark.parametrize("nsub,nq,block,split,chain", [
+    (64, 9, 2048, 2, 72),       # the defaults: two CTAs a step
+    (1, 9, 2048, 8, 18),        # few steps: eight CTAs share one
+    (700, 2, 4, 1, 2),          # more steps than SMs, one g
+    (5, 7, 2044, 8, 14),        # ragged shares
+])
+def test_k6_plan(nsub, nq, block, split, chain):
+    """The launch's split of a step's g's over CTAs, and the longest chain
+    of dependent adds it leaves a thread."""
+    assert k6.split_of(nsub, block) == split
+    assert k6.longest_chain(nsub, nq, block) == chain
 
 
 @pytest.mark.parametrize("bad", ["variant", "dtype", "ragged_block", "nsub",
