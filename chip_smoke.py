@@ -62,7 +62,29 @@ Phases:
       probe's defaults (nsub 64, block 2048, nq 9), then against its plain
       version, both times from CUDA events; beside its bound the floor its
       design allows: one launch (timed here on one empty step) plus the
-      longest chain of dependent adds at the card's top clock.
+      longest chain of dependent adds at the card's top clock;
+  (k) host-sourced ingest, where the card lays the chunks out itself
+      (engine/device_prep.py): for Point Average (160x160 and 1000x1000,
+      5M), Gaussian sigma 4, rotated 8 x 3 and 4 x 1.5 (5M), Line half
+      length 16 at direction 0 (5M) and 0.7 (1M), the same cloud staged
+      (Pipeline.stage, one chunk) by the host route (PCR_WIRE_CHEAP=0) and
+      by the device route must give equal params and bids on the card (the
+      script fails otherwise); each row with its entries, both routes'
+      stage seconds, and, three times, the device route's ms by CUDA
+      events from the end of the upload (device_prep.timeline), split into
+      expand (decode, halo copies or runs), sort (the stable sort by tile)
+      and finish (counts, planes, the scatter into sub-chunks), and its
+      peak device memory. Then, per row, pipelines by every way in, each
+      three times: stage by the host route (the reference band), stage by
+      the device route, ingest(cloud) in GPU mode and in Hybrid mode with 1
+      worker, every band bit-identical to the reference; then GPU mode
+      with chunks of tiling.INGEST_CHUNK_POINTS and Hybrid mode with 2 and
+      4 workers, which cuts a cloud so, bit-identical to each other and
+      within 1e-5 of the reference; the launch counters read, and the best
+      stage / ingest / finalize walls of the three. One Hybrid 1M row of
+      each glyph is held against the oracle in (d), (g) and (i). Last,
+      pageable against pinned upload rates and the card's busy share over
+      one Hybrid ingest (torch.profiler).
 Every pipeline runs with gpu_require_strict and must run on a TorchEngine
 on the card, through its kernels: each path is driven with the launch
 counters set to 0 just before it and read just after. Nothing of pcr_tpu or
@@ -147,10 +169,12 @@ def cloud(pcr, n, lo, hi, vmax, seed, ts=False, line_channels=False):
 
 
 def run_pipeline(pcr, gc, specs, c, mode, staged=False, state_dir="",
-                 output_path=""):
+                 output_path="", workers=0, chunk_size=0):
     """One pipeline lifecycle; returns (pipeline, bands, walls)."""
     import torch
     cfg = pcr.PipelineConfig()
+    cfg.hybrid_cpu_threads = workers
+    cfg.chunk_size = chunk_size
     cfg.grid = gc
     cfg.reductions = specs
     cfg.exec_mode = mode
@@ -179,6 +203,27 @@ def run_pipeline(pcr, gc, specs, c, mode, staged=False, state_dir="",
     if mode == pcr.ExecutionMode.CPU:
         ORACLE_S.append(t3 - t2)
     return p, [p.result().band_array(i) for i in range(len(specs))], walls
+
+
+def hybrid_vs_oracle(pcr, gc, specs, c, oracle, label, fns, exact=()):
+    """One host-sourced Hybrid pipeline (2 workers, 250k-point chunks, so
+    the pool has chunks to prepare ahead) against oracle bands computed
+    before; bands listed in `exact` must match bit for bit."""
+    for f in fns:
+        f.launches = 0
+    _, bands, w = run_pipeline(pcr, gc, specs, c, pcr.ExecutionMode.Hybrid,
+                               workers=2, chunk_size=250_000)
+    check(all(f.launches >= 1 for f in fns),
+          f"{label}: Hybrid mode never launched a kernel of its path")
+    errs = [0.0]
+    for i, (g, o) in enumerate(zip(bands, oracle)):
+        if i in exact:
+            check(np.array_equal(g, o, equal_nan=True),
+                  f"{label}: Hybrid band {i} differs from the oracle")
+        else:
+            errs.append(close(g, o, f"{label}: Hybrid band {i} vs oracle"))
+    print(f"{label}, Hybrid 2 workers host-sourced: {fmt(w)} launches="
+          f"{[f.launches for f in fns]} max_abs_err={max(errs)!r}")
 
 
 def fmt(walls):
@@ -425,7 +470,7 @@ def gauss_case(torch, pcr, gk, size, n, label, glyph, want_kind, seed,
 
 
 def gauss_pipeline(pcr, gk, gc, specs, c, label, kinds, staged=False,
-                   state_dir="", output_path=""):
+                   state_dir="", output_path="", hybrid=False):
     """(g): one Gaussian pipeline on the card against the numpy oracle,
     with the launch counters of `kinds` set to 0 just before it and read
     just after. Returns (pipeline, bands, walls, launches)."""
@@ -444,6 +489,9 @@ def gauss_pipeline(pcr, gk, gc, specs, c, label, kinds, staged=False,
             for i, (g, o) in enumerate(zip(bands, oracle))]
     print(f"(g) {label}: {fmt(w)} launches={launches} "
           f"max_abs_err={max(errs)!r} oracle: {fmt(ow)}")
+    if hybrid:
+        hybrid_vs_oracle(pcr, gc, specs, c, oracle, f"(g) {label}",
+                         [fns[k] for k in kinds])
     return p, bands, w, launches
 
 
@@ -530,7 +578,7 @@ def rect_case(torch, pcr, lk, n, glyph, label, seed):
 
 
 def line_pipeline(pcr, lk, gc, specs, c, label, staged=False, state_dir="",
-                  output_path=""):
+                  output_path="", hybrid=False):
     """(i): one Line pipeline on the card against the numpy oracle, with
     K3's launch counter set to 0 just before it and read just after.
     Returns (pipeline, bands, walls, launches)."""
@@ -545,7 +593,257 @@ def line_pipeline(pcr, lk, gc, specs, c, label, staged=False, state_dir="",
             for i, (g, o) in enumerate(zip(bands, oracle))]
     print(f"(i) {label}: {fmt(w)} K3 launches={launches} "
           f"max_abs_err={max(errs)!r} oracle: {fmt(ow)}")
+    if hybrid:
+        hybrid_vs_oracle(pcr, gc, specs, c, oracle, f"(i) {label}",
+                         [lk.rect_splat])
     return p, bands, w, launches
+
+
+def layout_split(marks):
+    """(expand, sort, finish) ms of the chunks laid out inside one
+    device_prep.timeline(): per chunk, from the last upload's mark to
+    "layout", "sort0" to "sort1", and the rest up to "end"."""
+    expand = sort = finish = 0.0
+    up = None
+    at = {}
+    for name, ev in marks:
+        if name == "uploaded":
+            up = ev
+            continue
+        at[name] = ev
+        if name == "end":
+            expand += up.elapsed_time(at["layout"])
+            sort += at["sort0"].elapsed_time(at["sort1"])
+            finish += (at["layout"].elapsed_time(at["sort0"])
+                       + at["sort1"].elapsed_time(ev))
+    return expand, sort, finish
+
+
+def both_routes(torch, pcr, gc, spec, c, label, reps=3):
+    """(k): one cloud staged (`Pipeline.stage`, one chunk) by the host
+    route and by the device route; fails unless params and bids are equal
+    on the card. Prints the entries, each route's stage seconds, the
+    device route's CUDA-event split (`reps` stages, each printed: the
+    events follow the host's dispatch of some 40 launches, so they move
+    with the host's load) and its peak device memory."""
+    from pcr_tpu_torch.engine import device_prep as dp
+    from pcr_tpu_torch.engine import routing
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=[spec], exec_mode=pcr.ExecutionMode.GPU,
+        gpu_require_strict=True))
+    t0 = time.perf_counter()
+    routing.assign(gc, c.x_array(), c.y_array())
+    assign_s = time.perf_counter() - t0
+
+    def stage(wire):
+        os.environ["PCR_WIRE_CHEAP"] = "1" if wire else "0"
+        try:
+            with dp.timeline() as marks:
+                t0 = time.perf_counter()
+                chunks = p.stage(c).per_spec[0]
+                torch.cuda.synchronize()
+                return chunks, time.perf_counter() - t0, marks
+        finally:
+            del os.environ["PCR_WIRE_CHEAP"]
+
+    stage(True)                     # warm-up: pinned buffers, the allocator
+    host, host_s, _ = stage(False)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runs = []
+    for _ in range(reps):
+        dev, dev_s, marks = stage(True)
+        runs.append((dev_s, layout_split(marks)))
+    peak = torch.cuda.max_memory_allocated() - base
+    check(len(dev) == len(host) == 1,
+          f"(k) {label}: {len(dev)} and {len(host)} chunks, not one")
+    check([m[0] for m in marks] == ["uploaded", "layout", "sort0", "sort1",
+                                    "end"],
+          f"(k) {label}: the device route left marks "
+          f"{[m[0] for m in marks]}")
+    d, h = dev[0], host[0]
+    check((d.kind, d.th, d.wt, d.cut) == (h.kind, h.th, h.wt, h.cut)
+          and d.params.dtype == h.params.dtype
+          and torch.equal(d.params.view(torch.int32),
+                          h.params.view(torch.int32))
+          and torch.equal(d.bids, h.bids),
+          f"(k) {label}: the device route's bytes differ from the host "
+          f"route's")
+    pr = d.params
+    if d.kind == "rect":
+        live = (pr[:, 0] <= pr[:, 1]) & (pr[:, 2] <= pr[:, 3])
+    elif d.kind == "point":
+        live = pr[:, 1] >= 0
+    elif d.kind == "rotp":
+        live = pr[:, 6] <= pr[:, 7]
+    else:
+        live = pr[:, 8 if d.kind == "rot" else 6] >= 0
+    split = "; ".join(
+        f"stage {s:.4f}s, layout {sum(t):.3f} ms: expand={t[0]:.3f} "
+        f"sort={t[1]:.3f} finish={t[2]:.3f}" for s, t in runs)
+    print(f"(k) {label}: {d.kind} th={d.th} wt={d.wt} nsub={pr.shape[0]} "
+          f"entries={int(live.sum())} layout_bytes="
+          f"{pr.numel() * 4 + d.bids.numel() * 4} bytes equal; stage by the "
+          f"host route {host_s:.4f}s; by the device route, {reps} times "
+          f"({split}); peak_device_bytes={peak}; routing.assign alone "
+          f"{assign_s:.4f}s")
+
+
+def every_way_in(torch, pcr, gc, specs, c, label, fns, reps=3):
+    """(k): one cloud through the pipeline by every way in, `reps` times
+    each. Whole clouds first: the reference band comes from a stage by the
+    host route, and the device-route stage, ingest(cloud) in GPU mode and
+    in Hybrid mode with one worker must equal it bit for bit. Then cut
+    clouds: Hybrid with 2 and 4 workers cuts a cloud into chunks of
+    tiling.INGEST_CHUNK_POINTS, and must give the bits of GPU mode at that
+    chunk_size (chunk boundaries show in a sum's last bits, so that band
+    is held to the whole cloud's within 1e-5 only). Every kernel of `fns`
+    must have been launched by every way. Prints the best walls of each."""
+    from pcr_tpu_torch.engine.tiling import INGEST_CHUNK_POINTS as cut
+    GPU, HYB = pcr.ExecutionMode.GPU, pcr.ExecutionMode.Hybrid
+    ways = [("stage host route", GPU, True, False, 0, 0),
+            ("stage device route", GPU, True, True, 0, 0),
+            ("ingest GPU", GPU, False, True, 0, 0),
+            ("ingest Hybrid 1 worker", HYB, False, True, 1, 0),
+            (f"ingest GPU chunk_size {cut}", GPU, False, True, 0, cut),
+            ("ingest Hybrid 2 workers", HYB, False, True, 2, 0),
+            ("ingest Hybrid 4 workers", HYB, False, True, 4, 0)]
+    want = whole = None
+    for name, mode, staged, wire, workers, chunk_size in ways:
+        if chunk_size:
+            whole, want = want, None    # the cut clouds' own reference
+        best, launches = None, None
+        for _ in range(reps):
+            os.environ["PCR_WIRE_CHEAP"] = "1" if wire else "0"
+            for f in fns:
+                f.launches = 0
+            try:
+                _, bands, w = run_pipeline(pcr, gc, specs, c, mode,
+                                           staged=staged, workers=workers,
+                                           chunk_size=chunk_size)
+            finally:
+                del os.environ["PCR_WIRE_CHEAP"]
+            launches = [f.launches for f in fns]
+            check(min(launches) >= 1,
+                  f"(k) {label}, {name}: a kernel was never launched")
+            if want is None:
+                want = [b.view(np.int32).copy() for b in bands]
+                if whole is not None:
+                    for b, x in zip(bands, whole):
+                        close(b, x.view(np.float32),
+                              f"(k) {label}, {name} vs the whole cloud")
+            check(all(np.array_equal(b.view(np.int32), x)
+                      for b, x in zip(bands, want)),
+                  f"(k) {label}, {name}: the band's bits differ from "
+                  + ("GPU mode's at that chunk_size" if whole is not None
+                     else "the host-route stage's"))
+            best = w if best is None else {k: min(best[k], w[k])
+                                           for k in w}
+        print(f"(k) {label}, {name}: best of {reps}: {fmt(best)} "
+              f"launches={launches} bits equal")
+
+
+def upload_rates(torch, nbytes=256 << 20, reps=5):
+    """(k): GB/s of one pageable upload (torch.from_numpy(a).to(device))
+    against one pinned upload on a side stream, best of `reps`."""
+    a = np.ones(nbytes // 4, np.int32)
+    pinned = torch.empty(nbytes // 4, dtype=torch.int32, pin_memory=True)
+    pinned.numpy()[:] = a
+    dev = torch.empty(nbytes // 4, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.Stream()
+    best = {"pageable": 1e9, "pinned": 1e9}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(a).to("cuda")
+        torch.cuda.synchronize()
+        best["pageable"] = min(best["pageable"], time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            dev.copy_(pinned, non_blocking=True)
+        stream.synchronize()
+        best["pinned"] = min(best["pinned"], time.perf_counter() - t0)
+    rates = {k: nbytes / v / 1e9 for k, v in best.items()}
+    print(f"(k) upload of {nbytes >> 20} MiB, best of {reps}: pageable "
+          f"{rates['pageable']:.2f} GB/s, pinned on the copy stream "
+          f"{rates['pinned']:.2f} GB/s")
+
+
+def busy_share(torch, pcr, gc, specs, c, label):
+    """(k): the card's busy share over one Hybrid ingest(cloud): the sum of
+    its kernels' and copies' device time (torch.profiler) over the
+    ingest's wall."""
+    from torch.profiler import ProfilerActivity, profile
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=specs, exec_mode=pcr.ExecutionMode.Hybrid,
+        gpu_require_strict=True))
+    p.ingest(c)                      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p.ingest(c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the rows of the card's own kernels and copies; an operator's row may
+    # repeat the time of the kernels it launched
+    from torch.autograd import DeviceType
+    on_card = [(e.key, getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = sum(t for _, t in on_card)
+    check(dev_us > 0, f"(k) {label}: the profiler saw no device time")
+    names = ", ".join(f"{k[:40]} {t / 1e3:.2f}ms" for k, t in sorted(
+        on_card, key=lambda kt: -kt[1])[:5])
+    print(f"(k) {label}: Hybrid ingest wall {wall:.4f}s under the profiler, "
+          f"device time {dev_us / 1e6:.4f}s, busy share "
+          f"{dev_us / 1e6 / wall:.3f}; most of it: {names}")
+
+
+def phase_k(torch, pcr, kernels, gk, lk):
+    """(k), see the module docstring."""
+    RT = pcr.ReductionType
+    avg = [pcr.ReductionSpec(value_channel="value", type=RT.Average)]
+
+    def gspec(**glyph):
+        sp = pcr.gaussian_splat_spec("value", **glyph)
+        sp.type = RT.Average
+        return [sp]
+
+    g1000, g160 = grid(pcr, 1000, 3857), grid(pcr, 160, 32610)
+    M = 1_000_000
+    rows = [
+        ("Point 160x160 5M Average", g160, avg, (5 * M, 0.5, 159.5),
+         [kernels.sorted_splat_point]),
+        ("Point 1000x1000 5M Average", g1000, avg, (5 * M, 0.0, 1000.0),
+         [kernels.sorted_splat_point]),
+        ("Gaussian sigma 4 5M Average", g1000, gspec(default_sigma=4.0),
+         (5 * M, 0.0, 1000.0), [gk.sorted_splat_gauss]),
+        ("Gaussian rotated 8x3 5M Average", g1000,
+         gspec(default_sigma_x=8.0, default_sigma_y=3.0,
+               default_rotation=0.6),
+         (5 * M, 0.0, 1000.0), [gk.rot_splat_dense]),
+        ("Gaussian rotated 4x1.5 5M Average", g1000,
+         gspec(default_sigma_x=4.0, default_sigma_y=1.5,
+               default_rotation=0.6),
+         (5 * M, 0.0, 1000.0), [gk.rot_splat_packed]),
+        ("Line hl 16 dir 0 5M WeightedAverage", g1000,
+         [lspec(pcr, RT.WeightedAverage, default_half_length=16.0)],
+         (5 * M, 0.0, 1000.0), [lk.rect_splat]),
+        ("Line hl 16 dir 0.7 1M WeightedAverage", g1000,
+         [lspec(pcr, RT.WeightedAverage, default_direction=0.7,
+                default_half_length=16.0)],
+         (M, 0.0, 1000.0), [lk.rect_splat]),
+    ]
+    for k, (label, gc, specs, (n, lo, hi), fns) in enumerate(rows):
+        c = cloud(pcr, n, lo, hi, 100.0, SEED + 20 + k)
+        both_routes(torch, pcr, gc, specs[0], c, label)
+        every_way_in(torch, pcr, gc, specs, c, label, fns)
+        if label.startswith("Gaussian sigma 4"):
+            busy_share(torch, pcr, gc, specs, c, label)
+        del c
+    upload_rates(torch)
 
 
 def k1_layout(pcr, torch, size, n, rtype, seed):
@@ -676,6 +974,8 @@ def main() -> int:
                   f"(d) {name} differs from the oracle")
         print(f"(d) quickstart 1000x1000 1M host Average+Max+Min+MostRecent: "
               f"{fmt(w)} max_abs_err(Average)={err_d!r} oracle: {fmt(ow)}")
+        hybrid_vs_oracle(pcr, gc, specs, c1, oracle, "(d) quickstart",
+                         [kernels.sorted_splat_point], exact=(1, 2, 3))
         del c1
 
         # (e) DC-LiDAR scale
@@ -753,14 +1053,14 @@ def main() -> int:
         del p, resumed
         gauss_pipeline(pcr, gauss_kernels, gc,
                        [gspec(s1, RT.WeightedAverage)], c1,
-                       "sigma 1 WeightedAverage 1M", ["gauss"])
+                       "sigma 1 WeightedAverage 1M", ["gauss"], hybrid=True)
         _, _, _, l_rotp = gauss_pipeline(
             pcr, gauss_kernels, gc, [gspec(rot4, RT.Average)], c1,
             "rotated 4x1.5 Average 1M host", ["rotp"])
         _, _, _, l_rot = gauss_pipeline(
             pcr, gauss_kernels, gc,
             [gspec(rot8, RT.Count), gspec(rot8, RT.Sum)], c250,
-            "rotated 8x3 Count+Sum 250k", ["rot"])
+            "rotated 8x3 Count+Sum 250k", ["rot"], hybrid=True)
         gauss_pipeline(pcr, gauss_kernels, gc, [gspec(s16, RT.Average)],
                        c250, "sigma 16 Average 250k", ["gauss"])
         del c1, c250
@@ -816,11 +1116,11 @@ def main() -> int:
         line_pipeline(pcr, lk, gc,
                       [lspec(pcr, RT.Sum, default_direction=0.7,
                              default_half_length=16.0)],
-                      c1, "hl 16 dir 0.7 Sum 1M host")
+                      c1, "hl 16 dir 0.7 Sum 1M host", hybrid=True)
         line_pipeline(pcr, lk, gc,
                       [lspec(pcr, RT.Average, direction_channel="dir",
                              half_length_channel="hl")],
-                      c1, "per-point dir + hl Average 1M host")
+                      c1, "per-point dir + hl Average 1M host", hybrid=True)
         _, bands, _, _ = line_pipeline(
             pcr, lk, gc, [lspec(pcr, RT.Count, default_direction=0.7,
                                 default_half_length=4.0)],
@@ -885,6 +1185,9 @@ def main() -> int:
               f"floor_ms={floor_ms!r} (one launch {launch_ms!r} + a chain "
               f"of {chain} adds; split={k6.split_of(nsub, block)}) "
               f"(turns: {turns})")
+
+        # (k) host-sourced ingest: the card lays the chunks out itself
+        phase_k(torch, pcr, kernels, gauss_kernels, lk)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

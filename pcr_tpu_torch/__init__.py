@@ -22,12 +22,23 @@ stay host-side. Gaussian splats run kernels K2 (separable), K4 (dense
 rotated) and K5 (windowed rotated) (engine/gauss_kernels.py); Line glyphs
 run kernel K3, the rect splat of their Bresenham runs
 (engine/line_kernels.py). Kernel K6 is a micro-probe with its own entry
-point (probes/rot_expand.py). Custom reductions, out-of-core banding and
-meshes are refused on the device path (NotImplemented) and run on the CPU
-backend.
+point (probes/rot_expand.py).
+
+Host-sourced ingest and `Pipeline.stage` ship one compact exact record per
+point through pinned buffers on a copy stream, and the card builds the
+kernel layout itself (engine/device_prep.py; the chunks it refuses are
+laid out on the host, to the same bytes). Hybrid mode
+prepares chunks ahead on `hybrid_cpu_threads` worker threads while the
+card commits; its bands are GPU mode's bit for bit at the same
+`chunk_size` (with more than one worker and none set, 1M points).
+
+Refused on the device path (NotImplemented; the CPU backend runs them):
+Custom reductions, `gpu_memory_budget` out-of-core banding and meshes.
+Accepted and ignored, for compatibility: `gpu_pool_size_bytes` and
+`use_cuda_streams`.
 """
 
-__version__ = "0.5.0"   # the port's own: its fifth slice
+__version__ = "0.6.0"   # the port's own: its sixth slice
 
 from .core.device import (
     cuda_device_available,

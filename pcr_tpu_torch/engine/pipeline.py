@@ -15,9 +15,25 @@ Execution modes:
   * GPU    — the device path: a TorchEngine (engine/torch_backend.py) on
              the CUDA card, its kernels hand-written for Hopper.
   * Auto   — the same as GPU.
-  * Hybrid — the same as GPU: host routing, device accumulation. pcr_tpu's
-             worker pool that overlaps host prep with device commits is
-             not carried over (ROADMAP Queue 1).
+  * Hybrid — the device path with a pool of `hybrid_cpu_threads` worker
+             threads: they route, pack and upload the chunks ahead while
+             the card lays out and commits the earlier ones (pcr_tpu's
+             producer / consumer, pipeline.py:828-874). With the default
+             of one worker it prepares and commits in turn, as GPU mode
+             does, and gives GPU mode's bits; with more it cuts a cloud
+             into chunks of tiling.INGEST_CHUNK_POINTS unless `chunk_size`
+             says otherwise, and gives the bits of GPU mode at that
+             `chunk_size`.
+
+Host-sourced ingest (`ingest(cloud)`) and `stage` take a cloud whole, or
+in chunks of `chunk_size` points where the caller sets it (the same cut in
+every device mode), and ask the engine for the device layout
+(`wire_cheap=True`, engine/device_prep.py): the host ships one compact
+record per point and the card builds the kernel layout. pcr_tpu engages
+its wire only in Hybrid mode, because its u16 wire is lossy; the port's
+wire is exact and its device layout equals the host layout byte for byte,
+so it engages in GPU and Auto mode and in `stage` as well. A chunk the
+device layout refuses takes the host layout and the same kernel.
 
 Where it runs: on the card unless the caller asks for the CPU. Auto, GPU
 and Hybrid take the card; without one they raise StatusCode.CudaError. The
@@ -76,6 +92,7 @@ from . import cpu_backend as cpu
 from . import routing
 from .filter import FilterSpec, evaluate_filter_mask
 from .glyph import GLYPH_SUPPORTED_REDUCTIONS, GlyphSpec, GlyphType
+from .tiling import INGEST_CHUNK_POINTS, chunk_ranges
 from .torch_backend import TorchEngine, _not_ported
 
 __all__ = ["ExecutionMode", "ReductionSpec", "PipelineConfig",
@@ -141,7 +158,7 @@ class PipelineConfig:
     cpu_threads: int = 0
     # ^ caps the native OpenMP kernels' thread count (0 = runtime default)
     hybrid_cpu_threads: int = 0
-    # ^ COMPAT-ONLY, ignored: Hybrid runs as GPU (no prep worker pool).
+    # ^ Hybrid mode's worker threads (0 or 1 = prepare and commit in turn)
 
     # Multi-device scale-out (pcr_tpu's mesh engines): refused on the
     # device path (not ported).
@@ -172,8 +189,6 @@ class StagedCloud:
     """A routed point cloud staged in device memory (see Pipeline.stage)."""
     per_spec: list           # per ReductionSpec: list[StagedChunk]
     n_valid: int
-    col: np.ndarray          # valid points' assigned cells (for tile stats)
-    row: np.ndarray
     tiles: frozenset = frozenset()   # touched (trow, tcol), precomputed at
                                      # stage() time so ingest stays O(1) host
 
@@ -427,7 +442,9 @@ class Pipeline:
 
     def stage(self, cloud: PointCloud) -> "StagedCloud":
         """Route a cloud on the host and stage its packed chunks in device
-        memory without running the accumulation compute.
+        memory without running the accumulation compute. The chunks are
+        those `ingest(cloud)` would commit, so the band is the same bit
+        for bit.
 
         This is the analogue of the reference's Device-resident clouds
         ("GPU-Device" mode, docs/BENCHMARK_RESULTS.md:28-42): a subsequent
@@ -457,13 +474,11 @@ class Pipeline:
                 continue
             weights, timestamps = self._aux_channels(spec, info, cloud, n)
             gt = GlyphType(spec.glyph.type)
-            per_spec.append(self._prepare_device(
+            per_spec.append([c for chunks in self._staged_chunks(
                 i, spec, gt, cloud, x, y, col, row, valid, values, weights,
-                timestamps))
-        vc, vr = col[valid], row[valid]
+                timestamps) for c in chunks])
         return StagedCloud(per_spec=per_spec,
                            n_valid=int(np.count_nonzero(valid)),
-                           col=vc, row=vr,
                            tiles=frozenset(self._tiles_of(col, row, valid)))
 
     def ingest(self, cloud) -> None:
@@ -683,48 +698,107 @@ class Pipeline:
 
     # -- device path --------------------------------------------------------------
 
-    def _prepare_device(self, i, spec, gt, cloud, x, y, col, row, valid,
+    def _prepare_device(self, i, spec, gt, cloud, sl, x, y, col, row, valid,
                         values, weights, timestamps):
-        """Host-route one cloud for one spec and stage its packed chunks on
-        the device. Returns the staged chunk list (commit runs the
-        kernels). Host-sourced and staged ingest take the same layouts."""
+        """Stage points `sl` (a slice) of one cloud for one spec: the
+        arrays but `cloud`'s channels arrive cut. Returns the staged chunk
+        list (commit runs the kernels). Runs on the Hybrid worker threads:
+        it writes nothing on the pipeline or the engine.
+
+        The routing of pcr_tpu's `_prepare_jax` (pipeline.py:760-797), with
+        the device layout asked for everywhere (`wire_cheap=True`): clouds
+        of uniform glyph shape go from world coordinates to the wire in
+        one native pass (`prepare_*_raw`); the rest, and what the raw
+        paths decline, go through routing's per-point parameters."""
         cfg = self.config.grid
         eng = self._engine
+        ch = lambda name: _ch(cloud, name, sl)
         if gt == GlyphType.Point:
             return eng.prepare_point(i, None, valid, values, weights,
-                                     timestamps, col=col, row=row)
+                                     timestamps, wire_cheap=True, col=col,
+                                     row=row)
         if gt == GlyphType.Gaussian:
-            gp = routing.gaussian_params(
-                spec.glyph, cfg, x, y,
-                routing.glyph_channel(cloud, spec.glyph.sigma_x_channel),
-                routing.glyph_channel(cloud, spec.glyph.sigma_y_channel),
-                routing.glyph_channel(cloud, spec.glyph.rotation_channel))
-            return eng.prepare_gaussian(i, gp, valid, values)
+            chans = [ch(spec.glyph.sigma_x_channel),
+                     ch(spec.glyph.sigma_y_channel),
+                     ch(spec.glyph.rotation_channel)]
+            if all(c is None for c in chans):
+                staged = eng.prepare_gaussian_raw(i, spec.glyph, x, y, valid,
+                                                  values)
+                if staged is not None:
+                    return staged
+            gp = routing.gaussian_params(spec.glyph, cfg, x, y, *chans)
+            return eng.prepare_gaussian(i, gp, valid, values,
+                                        wire_cheap=True)
         if gt == GlyphType.Line:
-            lp = routing.line_params(
-                spec.glyph, cfg, x, y,
-                routing.glyph_channel(cloud, spec.glyph.direction_channel),
-                routing.glyph_channel(cloud, spec.glyph.half_length_channel))
-            return eng.prepare_line(i, lp, valid, values, col, row)
+            chans = [ch(spec.glyph.direction_channel),
+                     ch(spec.glyph.half_length_channel)]
+            if all(c is None for c in chans):
+                staged = eng.prepare_line_raw(i, spec.glyph, x, y, valid,
+                                              values, col, row)
+                if staged is not None:
+                    return staged
+            lp = routing.line_params(spec.glyph, cfg, x, y, *chans)
+            return eng.prepare_line(i, lp, valid, values, col, row,
+                                    wire_cheap=True)
         raise PcrError(Status.error(StatusCode.NotImplemented,
                                     f"unknown glyph type {gt}"))
 
-    def _ingest_device(self, i, spec, gt, cloud, x, y, col, row, valid,
+    def _staged_chunks(self, i, spec, gt, cloud, x, y, col, row, valid,
                        values, weights, timestamps):
+        """Yield the staged chunk lists of one cloud for one spec, in
+        order: the whole cloud, or its runs of `chunk_size` points where
+        the caller set one (pipeline.h:67 declares it; the reference never
+        reads it). The cut is the same in every device mode, so at one
+        `chunk_size` the modes give the same bits.
+
+        In Hybrid mode with more than one worker, a pool of threads
+        prepares (routes, packs, uploads, lays out) the later chunks while
+        the caller commits the earlier ones: pcr_tpu's producer / consumer
+        (pipeline.py:828-874), with at most workers + 1 chunks in flight.
+        So that the pool has chunks to prepare ahead, a cloud without a
+        `chunk_size` is then cut into runs of INGEST_CHUNK_POINTS. The
+        native passes and the uploads release the interpreter lock."""
         n = len(x)
-        # User-pinned device chunk size (pipeline.h:67 declares it; the
-        # reference never reads it — honored here): slice the cloud and
-        # commit chunk-by-chunk.
-        cs = int(self.config.chunk_size)
-        if cs <= 0 or n <= cs:
-            cs = max(n, 1)
-        for a in range(0, n, cs):
-            sl = slice(a, min(a + cs, n))
-            staged = self._prepare_device(
-                i, spec, gt, cloud, x[sl], y[sl], col[sl], row[sl],
+
+        def prep(rng_):
+            sl = slice(*rng_)
+            return self._prepare_device(
+                i, spec, gt, cloud, sl, x[sl], y[sl], col[sl], row[sl],
                 valid[sl], values[sl],
                 weights[sl] if weights is not None else None,
                 timestamps[sl] if timestamps is not None else None)
+
+        workers = 1
+        if ExecutionMode(self.config.exec_mode) == ExecutionMode.Hybrid:
+            # 0 = 1: on the card a chunk's preparation is mostly torch's
+            # dispatch under the interpreter lock, and more workers never
+            # beat one on an H100 with 8 host cores (PERF.md, "the
+            # workers"); pcr_tpu's default is 2
+            workers = max(int(self.config.hybrid_cpu_threads), 1)
+        cs = int(self.config.chunk_size)
+        if cs <= 0:
+            cs = INGEST_CHUNK_POINTS if workers > 1 else max(n, 1)
+        ranges = chunk_ranges(n, cs)
+        if workers <= 1 or len(ranges) <= 1:
+            for r in ranges:
+                yield prep(r)
+            return
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            pending = deque()
+            for r in ranges:
+                pending.append(ex.submit(prep, r))
+                if len(pending) > workers:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
+
+    def _ingest_device(self, i, spec, gt, cloud, x, y, col, row, valid,
+                       values, weights, timestamps):
+        for staged in self._staged_chunks(i, spec, gt, cloud, x, y, col, row,
+                                          valid, values, weights,
+                                          timestamps):
             self._engine.commit(i, staged)
 
     # -- bookkeeping -------------------------------------------------------------

@@ -16,7 +16,9 @@ coefficients alike (the twin tests hold them bit for bit):
 The sizes are constants here, at the JAX package's defaults; only the
 Line tile width reads its environment variable (PCR_RECT_W_TILE), which
 the card tests set to cover other K3 tiles. The sizes were tuned on a
-TPU; ROADMAP Queue 1 re-derives them on Hopper.
+TPU; ROADMAP Queue 2 re-derives them on Hopper. The chunking constants of
+host-sourced ingest (WIRE_ENTRY_BUDGET, INGEST_CHUNK_POINTS,
+WIRE_COORD_MAX, `chunk_ranges`) are the port's own.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ import numpy as np
 __all__ = ["W_TILE", "round_up", "col_tile", "padded_width",
            "rect_col_tile", "gauss_col_tile", "gauss_row_block",
            "GAUSS_WMIN", "ROT_ROW_BLOCK", "ROT_COL_TILE", "ROTP_ROW_BLOCK",
-           "ROTP_RMAX", "gauss_product_cutoff_bites", "gauss_corr_offsets",
-           "rot_quadratic_segs"]
+           "ROTP_RMAX", "WIRE_ENTRY_BUDGET", "INGEST_CHUNK_POINTS",
+           "WIRE_COORD_MAX", "chunk_ranges", "gauss_product_cutoff_bites",
+           "gauss_corr_offsets", "rot_quadratic_segs"]
 
 W_TILE = 256             # column tile width
 GAUSS_NARROW_MAX = 65    # widest Gaussian window on the narrow tile
@@ -94,6 +97,28 @@ ROT_COL_TILE = 128
 # halo duplication (copies ~ (1+2r/TH)(1+2r/32) per point).
 ROTP_ROW_BLOCK = 16
 ROTP_RMAX = 16
+
+# Most layout entries (halo copies of points, or of Line runs) one staged
+# chunk may hold, by the worst case of its glyph: the device layout sorts a
+# chunk's entries at once and holds, for a while, about 100 B an entry
+# beside the layout itself. The counterpart of the JAX package's
+# PCR_WIRE_ENTRY_BUDGET (tpu_backend.py:1544), sized for the card's 80 GB
+# and not its 16M: the 5M-point layouts of the glyph suite stay one chunk.
+# Both layout routes split alike, so the route never shows in a band.
+WIRE_ENTRY_BUDGET = 64 << 20
+# Points per chunk of a cloud in Hybrid mode with more than one worker and
+# no `chunk_size`: what the workers prepare ahead while the card commits
+# (pipeline._staged_chunks). Every other mode takes such a cloud whole.
+INGEST_CHUNK_POINTS = 1 << 20
+# The device layout ships cell coordinates as int16 pairs: a chunk with a
+# coordinate at or past this bound takes the host layout.
+WIRE_COORD_MAX = 32000
+
+
+def chunk_ranges(n: int, cap: int):
+    """[(start, end)] splitting n items into runs of at most `cap`."""
+    cap = max(int(cap), 1)
+    return [(a, min(a + cap, n)) for a in range(0, n, cap)]
 
 
 def gauss_product_cutoff_bites(r, sx, sy) -> bool:

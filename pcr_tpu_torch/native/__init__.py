@@ -22,7 +22,7 @@ import subprocess
 import numpy as np
 
 __all__ = ["available", "lib", "assign", "assign_cells", "fractional_cells",
-           "gauss_wire_pack", "line_endpoints",
+           "gauss_wire_exact", "gauss_wire_words", "line_endpoints",
            "lzw_encode", "lzw_decode", "rotp_counts", "rotp_place",
            "set_num_threads"]
 
@@ -111,10 +111,11 @@ def _load():
     lib.pcr_line_runs_emit.argtypes = [i, i, i, i, u8] + [i] * 4 + \
         [ctypes.c_int64] + [i] * 5
     lib.pcr_line_runs_emit.restype = ctypes.c_int64
-    lib.pcr_gauss_wire_pack.argtypes = [
-        d, d, u8, f, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+    lib.pcr_gauss_wire_exact.argtypes = [
+        d, d, u8, f, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
         i]
+    lib.pcr_gauss_wire_exact.restype = ctypes.c_int32
     lib.pcr_line_endpoints.argtypes = [
         d, d, ctypes.c_int64, u8,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -210,15 +211,25 @@ def fractional_cells(cfg, x: np.ndarray, y: np.ndarray):
 
 def pack_point_wire(col, row, valid, values, weights, start: int, end: int,
                     bucket: int, width: int, sentinel: int,
-                    mode: int) -> np.ndarray:
+                    mode: int, out: np.ndarray | None = None) -> np.ndarray:
     """One-pass staging pack for the wire-minimal Point layout.
 
     Returns the padded int32 device buffer [cells | f0 (| f1)] for the
-    [start, end) slice; mode 0 = Sum/Average (f0=value), 1 = Count (f0=1),
-    2 = WeightedAverage (f0=value*w, f1=w)."""
+    [start, end) slice (written into `out` where given); mode 0 =
+    Sum/Average (f0=value), 1 = Count (f0=1), 2 = WeightedAverage
+    (f0=value*w, f1=w). Invalid points get the cell `sentinel` and keep
+    their fields."""
     L = _load()
     nseg = 3 if mode == 2 else 2
-    out = np.empty(nseg * bucket, np.int32)
+    if out is None:
+        out = np.empty(nseg * bucket, np.int32)
+    if not (out.dtype == np.int32 and out.flags.c_contiguous
+            and len(out) >= nseg * bucket
+            and 0 <= start <= end <= min(len(col), len(row), len(valid),
+                                          len(values))
+            and end - start <= bucket
+            and (weights is None or len(weights) >= end)):
+        raise ValueError("pack_point_wire: bad slice or output buffer")
     col = np.ascontiguousarray(col, np.int32)
     row = np.ascontiguousarray(row, np.int32)
     if valid.dtype == np.bool_:
@@ -239,37 +250,46 @@ def pack_point_wire(col, row, valid, values, weights, start: int, end: int,
     return out
 
 
-def gauss_wire_pack(cfg, x, y, valid, values, start: int, end: int,
-                    bucket: int) -> np.ndarray:
-    """One-pass staging pack for the minimal-wire hybrid Gaussian layout
-    (uniform-shape case): raw f64 world coords -> padded
-    [icxy | subq | value] i32 device buffer for the [start, end) slice.
-    Byte-identical to tpu_backend._prepare_gaussian_wire's numpy chain."""
+def gauss_wire_words(m: int) -> int:
+    """int32 words of the exact Gaussian wire of m points: four planes and
+    the valid bytes, padded to a word."""
+    return 4 * m + (m + 3) // 4
+
+
+def gauss_wire_exact(cfg, x, y, valid, values, start: int, end: int,
+                     out: np.ndarray) -> bool:
+    """One-pass exact Gaussian wire of the [start, end) slice (uniform
+    shape): raw f64 world coords -> `out`, int32 [icx,icy int16 pair |
+    sub_cx bits | sub_cy bits | value bits | valid bytes] (see router.cpp
+    pcr_gauss_wire_exact). False when a centre cell does not fit the int16
+    pair; `out` is then unspecified."""
     L = _load()
-    out = np.empty(3 * bucket, np.int32)
     x = np.ascontiguousarray(x, np.float64)
     y = np.ascontiguousarray(y, np.float64)
     if valid.dtype == np.bool_:
         valid = valid.view(np.uint8)
     valid = np.ascontiguousarray(valid, np.uint8)
     values = np.ascontiguousarray(values, np.float32)
-    L.pcr_gauss_wire_pack(_ptr(x, ctypes.c_double), _ptr(y, ctypes.c_double),
-                          _ptr(valid, ctypes.c_uint8),
-                          _ptr(values, ctypes.c_float),
-                          start, end, bucket,
-                          cfg.origin_x, cfg.origin_y,
-                          1.0 / cfg.cell_size_x, 1.0 / cfg.cell_size_y,
-                          _ptr(out, ctypes.c_int32))
-    return out
+    if not (out.dtype == np.int32 and out.flags.c_contiguous
+            and len(out) >= gauss_wire_words(end - start)
+            and 0 <= start <= end <= min(len(x), len(y), len(valid),
+                                          len(values))):
+        raise ValueError("gauss_wire_exact: bad slice or output buffer")
+    return bool(L.pcr_gauss_wire_exact(
+        _ptr(x, ctypes.c_double), _ptr(y, ctypes.c_double),
+        _ptr(valid, ctypes.c_uint8), _ptr(values, ctypes.c_float),
+        start, end, cfg.origin_x, cfg.origin_y, cfg.cell_size_x,
+        cfg.cell_size_y, _ptr(out, ctypes.c_int32)))
 
 
 def line_endpoints(cfg, x, y, valid, hx: float, hy: float,
                    cos_d: float, sin_d: float):
-    """One-pass line endpoint math for the minimal-wire hybrid Line layout
-    (uniform-shape case). Returns (e0, e1, nruns, max_abs_coord,
-    max_dmaj) where e0/e1 are the packed u16-pair endpoint arrays of
-    routing.line_params + pack_u16_pair, nruns the per-point run counts,
-    and the scalars feed the 32000 wire guard / jmax chunking."""
+    """One-pass line endpoint math of the device layout's Line wire
+    (uniform direction and half length). Returns (e0, e1, nruns,
+    max_abs_coord, max_dmaj, total_runs): e0/e1 are routing.line_params'
+    endpoints as int16-pair words (iy0 = -32768 marks an invalid line),
+    nruns the per-point run counts, and the scalars, taken over the valid
+    lines, feed the wire's coordinate guard and the chunking."""
     L = _load()
     n = len(x)
     x = np.ascontiguousarray(x, np.float64)
@@ -277,19 +297,21 @@ def line_endpoints(cfg, x, y, valid, hx: float, hy: float,
     if valid.dtype == np.bool_:
         valid = valid.view(np.uint8)
     valid = np.ascontiguousarray(valid, np.uint8)
+    if not len(y) == len(valid) == n:
+        raise ValueError("line_endpoints: x, y and valid differ in length")
     e0 = np.empty(n, np.int32)
     e1 = np.empty(n, np.int32)
     nruns = np.empty(n, np.int32)
-    stats = np.zeros(2, np.int64)
+    stats = np.zeros(3, np.int64)
     L.pcr_line_endpoints(_ptr(x, ctypes.c_double), _ptr(y, ctypes.c_double),
                          n, _ptr(valid, ctypes.c_uint8),
                          hx, hy, cos_d, sin_d,
                          cfg.origin_x, cfg.origin_y,
-                         1.0 / cfg.cell_size_x, 1.0 / cfg.cell_size_y,
+                         cfg.cell_size_x, cfg.cell_size_y,
                          _ptr(e0, ctypes.c_int32), _ptr(e1, ctypes.c_int32),
                          _ptr(nruns, ctypes.c_int32),
                          _ptr(stats, ctypes.c_int64))
-    return e0, e1, nruns, int(stats[0]), int(stats[1])
+    return e0, e1, nruns, int(stats[0]), int(stats[1]), int(stats[2])
 
 
 def set_num_threads(n: int) -> None:

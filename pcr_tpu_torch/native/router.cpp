@@ -160,73 +160,72 @@ void pcr_pack_point_wire(const int32_t* col, const int32_t* row,
     }
 }
 
-// Fused staging pack for the minimal-wire hybrid Gaussian layout
-// (tpu_backend._prepare_gaussian_wire semantics, uniform-shape case): one
-// pass turns raw f64 world coords into the padded [icxy | subq | value]
-// device buffer — fractional cell, floor, u16 sub-cell quantization
-// (round-half-even, matching np.round), u16 pair packing, invalid
-// sentinel, pad fill. Replaces routing.gaussian_params (~20 numpy
-// passes, and the dominant hybrid-glyph cost on a 1-core steal-jittery
-// host) for clouds without per-point sigma/rotation channels. Byte-
-// identical to the numpy wire path for in-bounds points.
-void pcr_gauss_wire_pack(const double* x, const double* y,
-                         const uint8_t* valid, const float* values,
-                         int64_t start, int64_t end, int64_t bucket,
-                         double origin_x, double origin_y,
-                         double inv_csx, double inv_csy,
-                         int32_t* out)
+// The exact Gaussian wire of the device layout (engine/device_prep.py,
+// TorchEngine.prepare_gaussian_raw; uniform-shape clouds): one pass from
+// raw f64 world coords of the [start, end) slice to the int32 buffer
+//   [icx,icy as an int16 pair | sub_cx bits | sub_cy bits | value bits |
+//    valid bytes, padded to a word]
+// of m = end - start points each. The centre cell and the sub-cell offset
+// are routing.gaussian_params' (the division by the cell size, the floor,
+// the float32 of the f64 difference), so the card rebuilds the host
+// layout's bytes; nothing is quantized (the JAX package's u16 offsets are
+// not carried over). Invalid points keep their data: the host layout
+// gives each one dead copy. Returns 1, or 0 when a centre cell lies
+// outside the int16 pair (the chunk then takes the host layout).
+int32_t pcr_gauss_wire_exact(const double* x, const double* y,
+                             const uint8_t* valid, const float* values,
+                             int64_t start, int64_t end,
+                             double origin_x, double origin_y,
+                             double csx, double csy, int32_t* out)
 {
     const int64_t m = end - start;
     int32_t* out_icxy = out;
-    int32_t* out_subq = out + bucket;
-    int32_t* out_val = out + 2 * bucket;
-    const double lim = 1073741824.0;   // int64-safe clamp for wild coords
-#pragma omp parallel for schedule(static)
+    float* out_sx = reinterpret_cast<float*>(out + m);
+    float* out_sy = reinterpret_cast<float*>(out + 2 * m);
+    int32_t* out_val = out + 3 * m;
+    uint8_t* out_valid = reinterpret_cast<uint8_t*>(out + 4 * m);
+    int32_t bad = 0;
+#pragma omp parallel for schedule(static) reduction(|:bad)
     for (int64_t j = 0; j < m; ++j) {
         const int64_t i = start + j;
-        const double fcx = (x[i] - origin_x) * inv_csx;
-        const double fcy = (y[i] - origin_y) * inv_csy;
-        double fx = std::floor(fcx);
-        double fy = std::floor(fcy);
-        if (!(fx > -lim)) fx = -lim;       // also catches NaN
-        if (fx > lim) fx = lim;
-        if (!(fy > -lim)) fy = -lim;
-        if (fy > lim) fy = lim;
-        const int64_t icx = valid[i] ? (int64_t)fx : -32768;
-        const int64_t icy = valid[i] ? (int64_t)fy : 0;
-        out_icxy[j] = (int32_t)(uint32_t)(((uint64_t)(icx & 0xFFFF) << 16)
-                                          | (uint64_t)(icy & 0xFFFF));
-        float sub_cx = (float)(fcx - fx);
-        float sub_cy = (float)(fcy - fy);
-        if (!(sub_cx == sub_cx)) sub_cx = 0.0f;   // NaN-safe (dead points)
-        if (!(sub_cy == sub_cy)) sub_cy = 0.0f;
-        const int64_t qx = (int64_t)std::nearbyintf(sub_cx * 65535.0f);
-        const int64_t qy = (int64_t)std::nearbyintf(sub_cy * 65535.0f);
-        out_subq[j] = (int32_t)(uint32_t)(((uint64_t)(qx & 0xFFFF) << 16)
-                                          | (uint64_t)(qy & 0xFFFF));
+        const double fcx = (x[i] - origin_x) / csx;
+        const double fcy = (y[i] - origin_y) / csy;
+        const double fx = std::floor(fcx);
+        const double fy = std::floor(fcy);
+        // also catches NaN
+        if (!(fx >= -32768.0 && fx <= 32767.0 &&
+              fy >= -32768.0 && fy <= 32767.0)) {
+            bad |= 1;
+            continue;
+        }
+        out_icxy[j] = (int32_t)(((uint32_t)((int32_t)fx & 0xFFFF) << 16)
+                                | (uint32_t)((int32_t)fy & 0xFFFF));
+        out_sx[j] = (float)(fcx - fx);
+        out_sy[j] = (float)(fcy - fy);
         __builtin_memcpy(&out_val[j], &values[i], 4);
+        out_valid[j] = valid[i] ? 1 : 0;
     }
-    for (int64_t j = m; j < bucket; ++j) {
-        out_icxy[j] = (int32_t)0x80000000;   // -32768 << 16: dead sentinel
-        out_subq[j] = 0;
-        out_val[j] = 0;
-    }
+    for (int64_t j = m; j < ((m + 3) & ~(int64_t)3); ++j) out_valid[j] = 0;
+    return bad ? 0 : 1;
 }
 
-// Fused line endpoint math for the minimal-wire hybrid Line layout
-// (routing.line_params + tpu_backend._prepare_line_wire, uniform-shape
-// case): one pass from raw f64 world coords to packed u16-pair endpoint
-// arrays e0/e1, per-point run counts, and the chunking stats. cos/sin of
-// the (single) direction are computed by the caller with numpy so the
-// endpoint bits match the numpy/staged path exactly. stats[0] =
-// max |endpoint coord| (the 32000 wire guard), stats[1] = max(ddx, ddy)
-// (runlen_max - 1). Wild out-of-bounds coords are clamped int64-safe
-// instead of int32-wrapped; the 32000 guard rejects them either way.
+// Fused line endpoint math of the device layout's Line wire
+// (routing.line_params on a uniform direction and half length;
+// TorchEngine.prepare_line_raw): one pass from raw f64 world coords to
+// the int16-pair endpoint words e0 = (ix0, iy0) and e1 = (ix1, iy1), the
+// per-point run counts (0 and iy0 = -32768 for an invalid line), and the
+// chunking stats. cos/sin of the (single)
+// direction are computed by the caller with numpy, and the fractional
+// cell divides by the cell size as GridConfig.fractional_cell_array does,
+// so the endpoint bits are routing.line_params'. stats[0] = max |endpoint
+// coord| (the wire's coordinate guard), stats[1] = max(ddx, ddy), stats[2]
+// = the runs of the valid lines. Wild coords are clamped int64-safe; the
+// guard rejects them either way.
 void pcr_line_endpoints(const double* x, const double* y, int64_t n,
                         const uint8_t* valid,
                         float hx, float hy, float cos_d, float sin_d,
                         double origin_x, double origin_y,
-                        double inv_csx, double inv_csy,
+                        double csx, double csy,
                         int32_t* e0, int32_t* e1, int32_t* nruns,
                         int64_t* stats)
 {
@@ -235,11 +234,12 @@ void pcr_line_endpoints(const double* x, const double* y, int64_t n,
     const double lim = 1073741824.0;
     int64_t max_abs = 0;
     int64_t max_dmaj = 0;
+    int64_t total = 0;
 #pragma omp parallel for schedule(static) \
-    reduction(max:max_abs) reduction(max:max_dmaj)
+    reduction(max:max_abs) reduction(max:max_dmaj) reduction(+:total)
     for (int64_t i = 0; i < n; ++i) {
-        const double fcx = (x[i] - origin_x) * inv_csx;
-        const double fcy = (y[i] - origin_y) * inv_csy;
+        const double fcx = (x[i] - origin_x) / csx;
+        const double fcy = (y[i] - origin_y) / csy;
         double x0 = fcx - dxh, y0 = fcy - dyh;
         double x1 = fcx + dxh, y1 = fcy + dyh;
         // literal routing._round_half_away formula (bit-parity with numpy)
@@ -261,21 +261,25 @@ void pcr_line_endpoints(const double* x, const double* y, int64_t n,
         const int64_t ddy = iy1 >= iy0 ? iy1 - iy0 : iy0 - iy1;
         const int64_t dmaj = ddx > ddy ? ddx : ddy;
         const int64_t dmin = ddx > ddy ? ddy : ddx;
-        int64_t a;
-        a = ix0 < 0 ? -ix0 : ix0; if (a > max_abs) max_abs = a;
-        a = iy0 < 0 ? -iy0 : iy0; if (a > max_abs) max_abs = a;
-        a = ix1 < 0 ? -ix1 : ix1; if (a > max_abs) max_abs = a;
-        a = iy1 < 0 ? -iy1 : iy1; if (a > max_abs) max_abs = a;
-        if (dmaj > max_dmaj) max_dmaj = dmaj;
+        // iy0 == -32768 marks an invalid line: it makes no run
         const int64_t ey0 = valid[i] ? iy0 : -32768;
         e0[i] = (int32_t)(uint32_t)(((uint64_t)(ix0 & 0xFFFF) << 16)
                                     | (uint64_t)(ey0 & 0xFFFF));
         e1[i] = (int32_t)(uint32_t)(((uint64_t)(ix1 & 0xFFFF) << 16)
                                     | (uint64_t)(iy1 & 0xFFFF));
         nruns[i] = valid[i] ? (int32_t)(dmin + 1) : 0;
+        if (!valid[i]) continue;
+        int64_t a;
+        a = ix0 < 0 ? -ix0 : ix0; if (a > max_abs) max_abs = a;
+        a = iy0 < 0 ? -iy0 : iy0; if (a > max_abs) max_abs = a;
+        a = ix1 < 0 ? -ix1 : ix1; if (a > max_abs) max_abs = a;
+        a = iy1 < 0 ? -iy1 : iy1; if (a > max_abs) max_abs = a;
+        if (dmaj > max_dmaj) max_dmaj = dmaj;
+        total += dmin + 1;
     }
     stats[0] = max_abs;
     stats[1] = max_dmaj;
+    stats[2] = total;
 }
 
 int pcr_native_version() { return 1; }

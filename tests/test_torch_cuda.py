@@ -678,3 +678,52 @@ def test_k3_other_tile_widths(card, wt, rtype, monkeypatch):
     for g, r in zip(got, want):
         assert torch.equal(g != 0, r != 0)
         torch.testing.assert_close(g, r, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("glyph", ["point", "gauss", "rot", "line"])
+def test_hybrid_workers_and_both_routes_give_the_same_bits(card, glyph,
+                                                           monkeypatch):
+    """400k points in 20 chunks of 20k, so the pinned buffers and the copy
+    stream are reused many times under 4 workers: the bands of Hybrid
+    (1 and 4 workers), of GPU mode, of a staged cloud and of the host
+    layout (PCR_WIRE_CHEAP=0) are one, bit for bit, and each chunk's bytes
+    are the same by both routes."""
+    gc = make_grid_config(w=300.0, h=200.0, tile=64)
+    c = make_cloud(400_000, 41, 300.0, 200.0)
+    spec = {
+        "point": pcr.ReductionSpec(value_channel="v",
+                                   type=RT.WeightedAverage,
+                                   weight_channel="ts"),
+        "gauss": pcr.gaussian_splat_spec("v", default_sigma=3.0),
+        "rot": pcr.gaussian_splat_spec("v", default_sigma_x=8.0,
+                                       default_sigma_y=3.0,
+                                       default_rotation=0.6),
+        "line": pcr.line_splat_spec("v", default_direction=0.7,
+                                    default_half_length=9.0),
+    }[glyph]
+    if glyph != "point":
+        spec.type = RT.Average
+
+    def run(mode, wire="1", workers=0, staged=False):
+        monkeypatch.setenv("PCR_WIRE_CHEAP", wire)
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=[spec], exec_mode=mode,
+            gpu_require_strict=True, chunk_size=20_000,
+            hybrid_cpu_threads=workers))
+        src = p.stage(c) if staged else c
+        p.ingest(src)
+        p.finalize()
+        return p.result().band_array(0).view(np.int32).copy(), src
+
+    GPU, HYBRID = pcr.ExecutionMode.GPU, pcr.ExecutionMode.Hybrid
+    want, host = run(GPU, wire="0", staged=True)
+    got, dev = run(GPU, staged=True)
+    assert np.array_equal(got, want)
+    for a, b in zip(dev.per_spec[0], host.per_spec[0]):
+        assert a.kind == b.kind
+        assert torch.equal(a.params.view(torch.int32),
+                           b.params.view(torch.int32))
+        assert torch.equal(a.bids, b.bids)
+    assert len(dev.per_spec[0]) == 20
+    for mode, workers in ((GPU, 0), (HYBRID, 1), (HYBRID, 4), (HYBRID, 4)):
+        assert np.array_equal(run(mode, workers=workers)[0], want)

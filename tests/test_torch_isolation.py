@@ -52,6 +52,7 @@ def banned_imports(source: str, path: str = "<src>") -> list[str]:
 def test_the_sources_are_found():
     assert "pcr_tpu_torch/engine/pipeline.py" in SOURCES
     assert "pcr_tpu_torch/native/__init__.py" in SOURCES
+    assert "pcr_tpu_torch/engine/device_prep.py" in SOURCES
     assert len(SOURCES) > 30
 
 
