@@ -84,10 +84,41 @@ Phases:
       stage / ingest / finalize walls of the three. One Hybrid 1M row of
       each glyph is held against the oracle in (d), (g) and (i). Last,
       pageable against pinned upload rates and the card's busy share over
-      one Hybrid ingest (torch.profiler).
+      one Hybrid ingest (torch.profiler);
+  (l) out-of-core bands (gpu_memory_budget, engine/out_of_core.py): Point
+      Average on a 16384x16384 grid (268M cells, 1 m, EPSG:32610, 512-cell
+      tiles) with 20M uniform points under 1 GiB (8 bands of 2048 rows),
+      against the resident engine and the numpy oracle, with state_dir +
+      GeoTIFF read back and a banded resume; on an 8192x8192 grid with
+      512-cell tiles under 64 MiB, Gaussian sigma 4 Average 5M (K2),
+      rotated 8 x 3 Average 1M (K4) and Line half length 16 Average 5M
+      (K3); on a 4096x4096 grid of one tile (footprints cross the bands)
+      Gaussian sigma 4 Average 1M under 96 MiB, also against the oracle.
+      Each row: the resident engine (stage, ingest(staged)), the banded
+      engine the same way and host-sourced; the banded band within 1e-5 of
+      the resident one (and whether its bits are equal), banded reruns
+      bit-identical; on the middle band's and the last band's staged
+      chunks, the row's kernel against its plain version on a fresh band
+      state (K2 / K4 at the tolerance of (f), K1 and K3 at 1e-5), reruns
+      bit-identical; the bands and swaps, the bytes each way and their
+      GB/s (pageable copies), the walls; the band state, which must stay
+      under the budget (gpu_memory_budget bounds it), what ingest(staged)
+      and finalize add beside the staged cloud, which must stay under the
+      budget plus the largest band's layout, and the peak device memory of
+      the staged and of the host-sourced run, which must stay under the
+      budget plus the staged layout plus the resident engine's staging
+      scratch (its staging peak less its layout, measured in the same
+      row);
+  (m) Custom reductions on the quickstart grid (1000x1000, 1M host-sourced
+      points) against the oracle: RMS (K = 2, one K1 launch a chunk), a
+      K = 3 sum op (two launches), a max-kind op (exact, the torch
+      scatter), and the K = 3 op under a 12 MiB budget that bands it
+      (two launches a band); reruns bit-identical.
 Every pipeline runs with gpu_require_strict and must run on a TorchEngine
-on the card, through its kernels: each path is driven with the launch
-counters set to 0 just before it and read just after. Nothing of pcr_tpu or
+on the card (an OutOfCoreTorchEngine of several bands where (l) and (m)
+set a budget), through its kernels: each path is driven with the launch
+counters set to 0 just before it and read just after; the kernels line
+counts the launches of the main paths and of (l) and (m). Nothing of pcr_tpu or
 jax may be imported (checked at the end). The line before last is a JSON
 summary of the kernels, each with its bound: the larger of the bytes it
 must move (each input read once, each output written once) over 3.35 TB/s
@@ -169,10 +200,13 @@ def cloud(pcr, n, lo, hi, vmax, seed, ts=False, line_channels=False):
 
 
 def run_pipeline(pcr, gc, specs, c, mode, staged=False, state_dir="",
-                 output_path="", workers=0, chunk_size=0):
-    """One pipeline lifecycle; returns (pipeline, bands, walls)."""
+                 output_path="", workers=0, chunk_size=0, budget=0):
+    """One pipeline lifecycle; returns (pipeline, bands, walls). With a
+    `budget` the pipeline must band (an OutOfCoreTorchEngine of more than
+    one band); without one it must run resident."""
     import torch
     cfg = pcr.PipelineConfig()
+    cfg.gpu_memory_budget = budget
     cfg.hybrid_cpu_threads = workers
     cfg.chunk_size = chunk_size
     cfg.grid = gc
@@ -194,9 +228,13 @@ def run_pipeline(pcr, gc, specs, c, mode, staged=False, state_dir="",
     t4 = time.perf_counter()
     if mode != pcr.ExecutionMode.CPU:
         eng = p._engine
+        from pcr_tpu_torch.engine.out_of_core import OutOfCoreTorchEngine
         from pcr_tpu_torch.engine.torch_backend import TorchEngine
-        check(isinstance(eng, TorchEngine) and eng.device.type == "cuda",
-              f"the device pipeline runs on {eng!r}, not a CUDA TorchEngine")
+        want = OutOfCoreTorchEngine if budget else TorchEngine
+        check(isinstance(eng, want) and eng.device.type == "cuda"
+              and (not budget or eng.nbands > 1),
+              f"the device pipeline runs on {eng!r}, not a CUDA "
+              f"{want.__name__}" + (" of several bands" if budget else ""))
         torch.cuda.synchronize()
     walls = {"create": t1 - t0, "stage": t2 - t1, "ingest": t3 - t2,
              "finalize": t4 - t3}
@@ -846,6 +884,322 @@ def phase_k(torch, pcr, kernels, gk, lk):
     upload_rates(torch)
 
 
+def staged_bytes(staged, band=None):
+    """Device bytes of a StagedCloud's chunks (a banded engine's are
+    (band, chunks) pairs), or of band `band`'s alone."""
+    total = 0
+    for chunks in staged.per_spec:
+        for c in chunks:
+            if band is not None and isinstance(c, tuple) and c[0] != band:
+                continue
+            for ch in (c[1] if isinstance(c, tuple) else [c]):
+                total += ch.params.numel() * ch.params.element_size()
+                total += 0 if ch.bids is None else ch.bids.numel() * 4
+    return total
+
+
+def staged_run(torch, pcr, gc, specs, c, budget=0, state_dir="",
+               output_path=""):
+    """stage -> ingest(staged) -> finalize on the card, resident or banded
+    under `budget`, with the device bytes that staging adds beside the
+    pipeline (its peak from after create, `stage_peak`), the staged
+    layout's (`layout`, and its largest band's, `band_layout`), what
+    ingest and finalize add beside the staged cloud (`commit_peak`) and
+    the whole run's peak from after create (`peak`). Returns (pipeline,
+    bands, walls, bytes, staged cloud)."""
+    GPU = pcr.ExecutionMode.GPU
+    cfg = pcr.PipelineConfig(grid=gc, reductions=specs, exec_mode=GPU,
+                             gpu_require_strict=True,
+                             gpu_memory_budget=budget, state_dir=state_dir,
+                             output_path=output_path)
+    t0 = time.perf_counter()
+    p = pcr.Pipeline.create(cfg)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    staged = p.stage(c)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    mem = {"stage_peak": torch.cuda.max_memory_allocated() - base,
+           "layout": staged_bytes(staged),
+           "band_layout": max(staged_bytes(staged, b) for b in {
+               c[0] if isinstance(c, tuple) else 0
+               for chunks in staged.per_spec for c in chunks})}
+    stage_top = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    staged_base = torch.cuda.memory_allocated()
+    p.ingest(staged)
+    p._engine.block_until_ready()
+    t3 = time.perf_counter()
+    p.finalize()
+    t4 = time.perf_counter()
+    torch.cuda.synchronize()
+    commit_top = torch.cuda.max_memory_allocated()
+    mem["peak"] = max(stage_top, commit_top) - base
+    mem["commit_peak"] = commit_top - staged_base
+    walls = {"create": t1 - t0, "stage": t2 - t1, "ingest": t3 - t2,
+             "finalize": t4 - t3}
+    bands = [p.result().band_array(i) for i in range(len(specs))]
+    return p, bands, walls, mem, staged
+
+
+def band_kernels(torch, eng, staged, label, rtol):
+    """(l): each kernel of a band's staged chunks against its plain version
+    on a fresh band state, reruns bit-identical, for the middle band and
+    the last (a partial band on a grid that does not split evenly; on one
+    tile, entries copied in from the bands above, their centre rows
+    negative). The kernels and their keywords are the band's view's
+    (OutOfCoreTorchEngine.band_engine: the geometry of its row-offset
+    view). Returns the largest difference."""
+    per_band = dict(staged.per_spec[0])
+    err, nsub = 0.0, 0
+    for b in sorted({eng.nbands // 2, eng.nbands - 1}):
+        view = eng.band_engine(b)
+        shape = view._state_shape(True)
+        nf = len(view._states[0])
+        for chunk in per_band.get(b, []):
+            kern, plain, kw = view.splat_fns(chunk)
+            pr, bids = chunk.params, chunk.bids
+            fresh = lambda: [torch.zeros(shape, device=eng.device)
+                             for _ in range(nf)]
+            got, ref, again = fresh(), fresh(), fresh()
+            kern(got, pr, bids, **kw)
+            plain(ref, pr, bids, **kw)
+            kern(again, pr, bids, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                      for x, y in zip(got, again)),
+                  f"(l) {label} band {b}: kernel reruns are not "
+                  f"bit-identical")
+            err = max([err] + [close(g.cpu().numpy(), r.cpu().numpy(),
+                                     f"(l) {label} band {b} {chunk.kind} "
+                                     f"kernel vs plain", rtol, rtol)
+                               for g, r in zip(got, ref)])
+            nsub += pr.shape[0]
+    check(nsub > 0, f"(l) {label}: no staged chunk in the bands checked")
+    print(f"(l) {label}: bands {sorted({eng.nbands // 2, eng.nbands - 1})} "
+          f"kernel vs plain nsub={nsub} rtol={rtol:.3g} max_abs_err={err!r} "
+          f"reruns_bit_identical=True")
+    return err
+
+
+def band_row(torch, pcr, label, gc, specs, c, budget, fns, rtol=TOL,
+             oracle=None, state_dir="", output_path=""):
+    """(l) one row: the resident engine (stage, ingest(staged)), then the
+    banded engine the same way, each band's kernels against their plain
+    versions (band_kernels), then the banded engine host-sourced
+    (ingest(cloud)), whose band must carry the staged banded band's bits.
+    gpu_memory_budget bounds the band's state: the band state must stay
+    under the budget, and what ingest(staged) and finalize add beside the
+    staged cloud under the budget plus the largest band's layout. Beside
+    the budget come the staged layout and the staging of one band's chunk,
+    which needs no more than the resident engine's staging of the whole
+    cloud (its peak less its layout, measured here): the peaks of both
+    banded runs must stay under the budget plus those two. The launch
+    counters of `fns` are set to 0 before the banded runs and read after;
+    every one must move. Returns (banded pipeline, bands, launches)."""
+    GPU = pcr.ExecutionMode.GPU
+    rp, res, rw, rmem, rstaged = staged_run(torch, pcr, gc, specs, c)
+    del rp, rstaged
+    scratch = rmem["stage_peak"] - rmem["layout"]
+    for f in fns:
+        f.launches = 0
+    p, bands, bw, mem, staged = staged_run(torch, pcr, gc, specs, c, budget,
+                                           state_dir, output_path)
+    eng = p._engine
+    from pcr_tpu_torch.engine.out_of_core import OutOfCoreTorchEngine
+    check(isinstance(eng, OutOfCoreTorchEngine) and eng.nbands > 1
+          and eng.device.type == "cuda",
+          f"(l) {label}: no banded engine of several bands on the card")
+    state = sum(t.numel() * 4 for st in eng.band_engine(0)._states
+                if st is not None for t in st)
+    check(state <= budget, f"(l) {label}: the band state {state} is over "
+                           f"the budget {budget}")
+    st = dict(eng.stats)
+    launches = [f.launches for f in fns]
+    check(all(n >= 1 for n in launches),
+          f"(l) {label}: the banded run never launched {fns}")
+    check(mem["commit_peak"] <= budget + mem["band_layout"],
+          f"(l) {label}: ingest(staged) and finalize add {mem['commit_peak']}"
+          f" device bytes, over the budget {budget} + the largest band's "
+          f"layout {mem['band_layout']}")
+    limit = budget + mem["layout"] + scratch
+    check(mem["peak"] <= limit,
+          f"(l) {label}: peak device bytes {mem['peak']} over the budget "
+          f"{budget} + the layout {mem['layout']} + the resident staging "
+          f"scratch {scratch}")
+    kerr = band_kernels(torch, eng, staged, label, rtol)
+    del staged
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, again, hw = run_pipeline(pcr, gc, specs, c, GPU, budget=budget)
+    host_peak = torch.cuda.max_memory_allocated() - base
+    check(host_peak <= limit,
+          f"(l) {label}: host-sourced peak device bytes {host_peak} over "
+          f"the budget {budget} + the layout {mem['layout']} + the "
+          f"resident staging scratch {scratch}")
+    check(all(np.array_equal(a.view(np.int32), b.view(np.int32))
+              for a, b in zip(bands, again)),
+          f"(l) {label}: the banded reruns are not bit-identical")
+    errs = [close(b, r, f"(l) {label} banded vs resident band {i}")
+            for i, (b, r) in enumerate(zip(bands, res))]
+    same = all(np.array_equal(b.view(np.int32), r.view(np.int32))
+               for b, r in zip(bands, res))
+    oerr = None
+    if oracle is not None:
+        oerr = max(close(b, o, f"(l) {label} banded vs oracle band {i}")
+                   for i, (b, o) in enumerate(zip(bands, oracle)))
+    gbs = lambda n, t: n / t / 1e9 if t else float("nan")
+    print(f"(l) {label}: bands={eng.nbands} band_rows={eng.band_rows} "
+          f"swaps={st['swaps']} bytes_in={st['bytes_in']} "
+          f"bytes_out={st['bytes_out']} in_GBs="
+          f"{gbs(st['bytes_in'], st['seconds_in'])!r} out_GBs="
+          f"{gbs(st['bytes_out'], st['seconds_out'])!r} swap_s="
+          f"{st['seconds_in'] + st['seconds_out']!r}")
+    print(f"(l) {label}: banded staged {fmt(bw)}; banded host-sourced "
+          f"{fmt(hw)}; resident staged {fmt(rw)}; ingest banded/resident="
+          f"{bw['ingest'] / rw['ingest']!r} launches={launches} "
+          f"max_abs_err={max(errs)!r} bits_equal_resident={same} "
+          f"max_abs_err_oracle={oerr!r} kernel_vs_plain_err={kerr!r} "
+          f"reruns_bit_identical=True band_state_bytes={state} "
+          f"budget={budget} layout_bytes={mem['layout']} "
+          f"resident_staging_scratch={scratch} "
+          f"band_layout_bytes={mem['band_layout']} "
+          f"commit_peak_device_bytes={mem['commit_peak']} "
+          f"peak_device_bytes={mem['peak']} "
+          f"peak_device_bytes_host_sourced={host_peak}")
+    return p, bands, launches
+
+
+def phase_l(torch, pcr, kernels, gk, lk, tmp):
+    """(l), see the module docstring. Returns the launches of K1-K4."""
+    RT = pcr.ReductionType
+    M = 1_000_000
+    avg = [pcr.ReductionSpec(value_channel="value", type=RT.Average)]
+    out = {}
+    gc = grid(pcr, 16384, 32610, tile=512)
+    c = cloud(pcr, 20 * M, 0.0, 16384.0, 100.0, SEED + 40)
+    _, oracle, ow = run_pipeline(pcr, gc, avg, c, pcr.ExecutionMode.CPU)
+    print(f"(l) Point 16384x16384 20M oracle: {fmt(ow)}")
+    state_dir = os.path.join(tmp, "l_state")
+    tif = os.path.join(tmp, "l.tif")
+    p, bands, (n,) = band_row(
+        torch, pcr, "Point 16384x16384 20M Average 1 GiB", gc, avg, c,
+        1 << 30, [kernels.sorted_splat_point], TOL, oracle, state_dir, tif)
+    out["point"] = n
+    del oracle, c
+    check(np.array_equal(pcr.read_geotiff_band(tif, 0), bands[0],
+                         equal_nan=True), "(l) GeoTIFF != band")
+    resumed = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=avg, exec_mode=pcr.ExecutionMode.GPU,
+        gpu_require_strict=True, gpu_memory_budget=1 << 30,
+        state_dir=state_dir))
+    check(all(np.array_equal(a, b) for a, b in zip(
+        resumed._engine.fetch_state(0), p._engine.fetch_state(0))),
+        "(l) resume from state_dir does not reproduce the state")
+    del p, resumed, bands
+    shutil.rmtree(state_dir, ignore_errors=True)
+    os.remove(tif)
+
+    def gspec(**glyph):
+        sp = pcr.gaussian_splat_spec("value", **glyph)
+        sp.type = RT.Average
+        return [sp]
+
+    g8k = grid(pcr, 8192, 32610, tile=512)
+    # kernel against plain: K2 and K4 at gauss_rtol (r = 3 sigma), K3 1e-5
+    for key, label, specs, n, fn, rtol in (
+            ("gauss", "Gaussian sigma 4 Average 5M",
+             gspec(default_sigma=4.0), 5 * M, gk.sorted_splat_gauss,
+             gauss_rtol(5 * M, 8192, 12)),
+            ("rot", "Gaussian rotated 8x3 Average 1M",
+             gspec(default_sigma_x=8.0, default_sigma_y=3.0,
+                   default_rotation=0.6), M, gk.rot_splat_dense,
+             gauss_rtol(M, 8192, 24)),
+            ("rect", "Line hl 16 Average 5M",
+             [lspec(pcr, RT.Average, default_half_length=16.0)], 5 * M,
+             lk.rect_splat, TOL)):
+        c = cloud(pcr, n, 0.0, 8192.0, 100.0, SEED + 41)
+        _, _, (out[key],) = band_row(
+            torch, pcr, f"8192x8192 512-cell tiles {label} 64 MiB", g8k,
+            specs, c, 64 << 20, [fn], rtol)
+        del c
+    # one tile: footprints cross the bands, whose entries are copied
+    g4k = grid(pcr, 4096, 32610, tile=4096)
+    c = cloud(pcr, M, 0.0, 4096.0, 100.0, SEED + 42)
+    specs = gspec(default_sigma=4.0)
+    _, oracle, ow = run_pipeline(pcr, g4k, specs, c, pcr.ExecutionMode.CPU)
+    print(f"(l) 4096x4096 one tile Gaussian sigma 4 1M oracle: {fmt(ow)}")
+    _, _, (n,) = band_row(
+        torch, pcr, "4096x4096 one tile Gaussian sigma 4 Average 1M 96 MiB",
+        g4k, specs, c, 96 << 20, [gk.sorted_splat_gauss],
+        gauss_rtol(M, 4096, 12), oracle)
+    out["gauss"] += n
+    return out
+
+
+def phase_m(torch, pcr, kernels):
+    """(m), see the module docstring. Returns K1's launches."""
+    RT = pcr.ReductionType
+    GPU, CPU = pcr.ExecutionMode.GPU, pcr.ExecutionMode.CPU
+    FLT_MAX = float(np.finfo(np.float32).max)
+    gc = grid(pcr, 1000, 3857)
+    c = cloud(pcr, 1_000_000, 0.0, 1000.0, 100.0, SEED + 50)
+    k3 = dict(state_floats=3, identity=(0.0, 0.0, 0.0), scatter_kind="sum",
+              fields=lambda v, w, t: [v, v * v, v * 0 + 1.0],
+              merge_arrays=lambda a, b: [x + y for x, y in zip(a, b)],
+              finalize_arrays=lambda f: (f[0] + f[1]) / f[2])
+    ops = [
+        ("RMS (K = 2)", 1, 0, dict(
+            state_floats=2, identity=(0.0, 0.0), scatter_kind="sum",
+            fields=lambda v, w, t: [v * v, v * 0 + 1.0],
+            merge_arrays=lambda a, b: [a[0] + b[0], a[1] + b[1]],
+            finalize_arrays=lambda f: (f[0] / f[1]) ** 0.5)),
+        ("mean of v + v^2 (K = 3)", 2, 0, k3),
+        ("max of 2v (max kind)", 0, 0, dict(
+            state_floats=1, identity=(-FLT_MAX,), scatter_kind="max",
+            fields=lambda v, w, t: [v * 2.0],
+            merge_arrays=lambda a, b: [np.maximum(a[0], b[0])],
+            finalize_arrays=lambda f: np.where(f[0] == -FLT_MAX, np.nan,
+                                               f[0]))),
+        ("mean of v + v^2 (K = 3) banded", 2, 12 << 20, k3),
+    ]
+    total = 0
+    spec = [pcr.ReductionSpec(value_channel="value", type=RT.Custom,
+                              output_band_name="custom")]
+    for label, per_chunk, budget, op in ops:
+        pcr.unregister_reduction(RT.Custom)
+        pcr.register_custom_reduction(**op)
+        exact = pcr.get_reduction_info(RT.Custom).scatter_kind != "sum"
+        _, oracle, ow = run_pipeline(pcr, gc, spec, c, CPU)
+        kernels.sorted_splat_point.launches = 0
+        p, bands, w = run_pipeline(pcr, gc, spec, c, GPU, budget=budget)
+        n = kernels.sorted_splat_point.launches
+        chunks = p._engine.nbands if budget else 1
+        check(n == per_chunk * chunks,
+              f"(m) {label}: {n} K1 launches, not {per_chunk} a chunk")
+        _, again, _ = run_pipeline(pcr, gc, spec, c, GPU, budget=budget)
+        check(np.array_equal(bands[0].view(np.int32),
+                             again[0].view(np.int32)),
+              f"(m) {label}: reruns are not bit-identical")
+        if exact:
+            check(np.array_equal(bands[0], oracle[0], equal_nan=True),
+                  f"(m) {label}: differs from the oracle")
+            err = 0.0
+        else:
+            err = close(bands[0], oracle[0], f"(m) {label} vs oracle")
+        total += n
+        print(f"(m) custom {label} 1000x1000 1M host"
+              + (f" {budget >> 20} MiB bands={p._engine.nbands}"
+                 if budget else "")
+              + f": {fmt(w)} K1 launches={n} max_abs_err={err!r} "
+              f"reruns_bit_identical=True oracle: {fmt(ow)}")
+    pcr.unregister_reduction(RT.Custom)
+    return total
+
+
 def k1_layout(pcr, torch, size, n, rtype, seed):
     """A TorchEngine on the card and its K1 layout of n uniform points
     (1% of them invalid) on a size x size grid."""
@@ -1188,6 +1542,16 @@ def main() -> int:
 
         # (k) host-sourced ingest: the card lays the chunks out itself
         phase_k(torch, pcr, kernels, gauss_kernels, lk)
+
+        # (l) out-of-core bands, (m) Custom reductions
+        t_lm = time.perf_counter()
+        l_out = phase_l(torch, pcr, kernels, gauss_kernels, lk, tmp)
+        l_m = phase_m(torch, pcr, kernels)
+        print(f"(l) + (m) took {time.perf_counter() - t_lm:.1f}s")
+        launches += l_out["point"] + l_m
+        l_gauss += l_out["gauss"]
+        l_rot["rot"] += l_out["rot"]
+        l_rect += l_out["rect"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

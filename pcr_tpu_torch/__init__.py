@@ -18,7 +18,11 @@ Ported so far: the Point, Gaussian and Line glyphs on the device path
 finalize with PCRT checkpoints and GeoTIFF output, and resume. Point Sum /
 Count / Average / WeightedAverage run kernel K1 (engine/kernels.py); Max /
 Min / MostRecent / PriorityMerge run torch scatters; Median / Percentile
-stay host-side. Gaussian splats run kernels K2 (separable), K4 (dense
+stay host-side. Custom reductions (register_custom_reduction, Point glyph)
+run there too: a sum-kind op with K fields through K1, two fields a
+launch; max / min / argmax_ts ops through the scatters. A grid whose state
+exceeds `gpu_memory_budget` accumulates in host-resident row bands through
+one band-shaped engine (engine/out_of_core.py), on the same kernels. Gaussian splats run kernels K2 (separable), K4 (dense
 rotated) and K5 (windowed rotated) (engine/gauss_kernels.py); Line glyphs
 run kernel K3, the rect splat of their Bresenham runs
 (engine/line_kernels.py). Kernel K6 is a micro-probe with its own entry
@@ -32,13 +36,17 @@ prepares chunks ahead on `hybrid_cpu_threads` worker threads while the
 card commits; its bands are GPU mode's bit for bit at the same
 `chunk_size` (with more than one worker and none set, 1M points).
 
+The host utilities are the port's copies too: test-data generators and
+raster comparison (`testing`), phase timing with a torch.profiler trace
+and raster rendering (`utils`), and the rasterio bridge
+(`io.rasterio_bridge`).
+
 Refused on the device path (NotImplemented; the CPU backend runs them):
-Custom reductions, `gpu_memory_budget` out-of-core banding and meshes.
-Accepted and ignored, for compatibility: `gpu_pool_size_bytes` and
-`use_cuda_streams`.
+device meshes. Accepted and ignored, for compatibility:
+`gpu_pool_size_bytes` and `use_cuda_streams`.
 """
 
-__version__ = "0.6.0"   # the port's own: its sixth slice
+__version__ = "0.7.0"   # the port's own version, not pcr_tpu's
 
 from .core.device import (
     cuda_device_available,

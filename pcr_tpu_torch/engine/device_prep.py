@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .kernels import BLOCK
+from .tiling import centre_offset
 
 __all__ = ["DEAD16", "pack16", "unpack16", "halo_expand", "device_layout",
            "point_entries", "gauss_entries", "gauss_finish", "rotp_finish",
@@ -179,49 +180,57 @@ def gauss_entries(icx, icy, r, valid, th: int, wt: int, nrb: int, ncb: int):
 
 
 def gauss_finish(kind: str, icx, icy, sub_cx, sub_cy, sx, sy, r, f0, valid,
-                 coef=None):
+                 coef=None, row_offset: int = 0):
     """Per-point planes and fills of a K2 ("gauss") or K4 ("rot") chunk
     from the decoded wire: icx, icy, r int64; sub_cx, sub_cy, sx, sy, f0
     float32; `coef` the three completed-square coefficients every point of
-    a K4 chunk shares (tiling.rot_quadratic_segs on the uniform shape).
-    Invalid points keep their data and get r = -1."""
+    a K4 chunk shares (tiling.rot_quadratic_segs on the uniform shape);
+    `row_offset` as in tiling.centre_offset. Invalid points keep their
+    data and get r = -1."""
     r = torch.where(valid, r, -1)
     if kind == "gauss":
         return ([icx.int(), icy.int(), sub_cx, sub_cy, sx, sy, r.int(), f0],
                 [0, 0, 0, 0, 1.0, 1.0, -1, 0])
     icx_f, icy_f = icx.float(), icy.float()
     shared = [torch.full_like(sub_cx, float(c)) for c in coef]
-    return ([-(icx_f + sub_cx), -(icy_f + sub_cy), *shared, f0, icx_f, icy_f,
-             r.float()],
+    return ([centre_offset(icx, sub_cx),
+             centre_offset(icy, sub_cy, row_offset), *shared, f0, icx_f,
+             icy_f, r.float()],
             [0.0] * 8 + [-1.0])
 
 
 def rotp_finish(icx, icy, sub_cx, sub_cy, r, f0, valid, coef, W: int,
                 H: int, tile_w: int, tile_h: int, multi_tile: bool, th: int,
-                wt: int, ncb: int):
+                wt: int, ncb: int, row_offset: int = 0,
+                global_h: int | None = None):
     """(eb, planes, fills, idx) of a K5 ("rotp") chunk from the decoded
     wire (TorchEngine._prepare_rotp on tensors): each point's +-r window
-    clipped to the grid and, on a multi-tile grid, to its home tile; one
-    entry per (th, wt) tile a live window meets, none for a dead one.
-    `coef` as in gauss_finish; icx, icy, r int64."""
+    clipped to the grid and, on a multi-tile grid, to its home tile (in
+    the frame of a row-offset view: rows [row_offset, row_offset + H) of
+    `global_h`, as TorchEngine._prepare_rotp); one entry per (th, wt) tile
+    a live window meets, none for a dead one. `coef` as in gauss_finish;
+    icx, icy, r int64."""
     r = torch.where(valid, r, -1)
     W1, H1 = W - 1, H - 1
     wlo, whi = (icx - r).clamp(min=0), (icx + r).clamp(max=W1)
     rlo, rhi = (icy - r).clamp(min=0), (icy + r).clamp(max=H1)
     if multi_tile:
         cs = _fdiv(icx.clamp(0, W1), tile_w) * tile_w
-        rs = _fdiv(icy.clamp(0, H1), tile_h) * tile_h
+        Hg1 = (global_h or H) - 1
+        rs = _fdiv((icy + row_offset).clamp(0, Hg1), tile_h) * tile_h
         wlo = torch.maximum(wlo, cs)
         whi = torch.minimum(whi, (cs + tile_w - 1).clamp(max=W1))
-        rlo = torch.maximum(rlo, rs)
-        rhi = torch.minimum(rhi, (rs + tile_h - 1).clamp(max=H1))
+        rlo = torch.maximum(rlo, rs - row_offset)
+        rhi = torch.minimum(rhi, (rs + tile_h - 1).clamp(max=Hg1)
+                            - row_offset)
     alive = (valid & (wlo <= whi) & (rlo <= rhi) & (rlo <= H1) & (rhi >= 0))
     rlo, rhi = rlo.clamp(0, H1), rhi.clamp(0, H1)
     idx, eb = halo_expand(_fdiv(rlo, th),
                           torch.where(alive, _fdiv(rhi, th), -1),
                           _fdiv(wlo, wt), _fdiv(whi, wt), ncb)
     shared = [torch.full_like(sub_cx, float(c)) for c in coef]
-    planes = [-(icx.float() + sub_cx), -(icy.float() + sub_cy), *shared, f0,
+    planes = [centre_offset(icx, sub_cx),
+              centre_offset(icy, sub_cy, row_offset), *shared, f0,
               wlo.float(), whi.float(), rlo.float(), rhi.float()]
     return eb, planes, [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0], idx
 

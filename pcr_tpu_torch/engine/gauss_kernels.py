@@ -389,6 +389,9 @@ def rot_splat_packed(states, params: torch.Tensor, bids: torch.Tensor, *,
 rot_splat_packed.launches = 0
 
 
+_LN2 = 0.6931471805599453
+
+
 def _rot_plain(states, f, row0, col0, th, wt) -> None:
     """K4's and K5's plain body: entries f (E, 10) in K5's form [xoff |
     yoff | s | sC | sA2 | f0 | wlo | whi | rlo | rhi], each over its
@@ -412,7 +415,10 @@ def _rot_plain(states, f, row0, col0, th, wt) -> None:
         row_ok = row_in & (hs >= f[:, 8, None]) & (hs <= f[:, 9, None])
         col_ok = col_in & (ws >= f[:, 6, None]) & (ws <= f[:, 7, None])
         mask = row_ok[:, :, None] & col_ok[:, None, :] & (q2n >= ROT_CUT)
-        wgt = torch.exp2(q2n)
+        # exp2(q) as exp(q ln 2): torch's CPU exp2 rounds a vector's
+        # scalar tail otherwise than its body, so an entry's weight would
+        # hang on its place in the tensor; exp rounds alike in both
+        wgt = torch.exp(q2n * _LN2)
         return mask, f[:, 5, None, None] * wgt, wgt
 
     _splat_windows(states, f, row0, col0, th, wt, f[:, 8].long(),

@@ -42,10 +42,13 @@ CPU runs only for ExecutionMode.CPU, for an explicit
 by PCR_TORCH_DEVICE (the tests set "cpu", where every kernel takes its
 plain version).
 
-Not carried over, refused with StatusCode.NotImplemented on the device
-path: Custom reductions, `gpu_memory_budget` out-of-core banding and
-device meshes (pcr_tpu's OutOfCoreTpuEngine, ShardedTpuEngine and
-PartitionedTpuEngine). The CPU backend runs them all.
+Grids whose state exceeds `gpu_memory_budget` accumulate in host-resident
+row bands through one band-shaped engine (engine/out_of_core.py,
+OutOfCoreTorchEngine), whenever out_of_core.pick_band_rows gives a band.
+Custom reductions run on the device path as on the CPU (Point glyph only;
+engine/torch_backend.py). Not carried over, refused with
+StatusCode.NotImplemented on the device path: device meshes (pcr_tpu's
+ShardedTpuEngine and PartitionedTpuEngine). The CPU backend runs them.
 
 Differences from the reference, by design (as in pcr_tpu):
   * Multi-reduction ingest shares one world→cell assignment per cloud
@@ -137,7 +140,7 @@ class PipelineConfig:
     exec_mode: ExecutionMode = ExecutionMode.Auto
 
     # Memory budget
-    gpu_memory_budget: int = 0     # refused on the device path (not ported)
+    gpu_memory_budget: int = 0     # device bytes; a larger state bands
     host_cache_budget: int = 0
     chunk_size: int = 0            # points per device chunk, 0 = auto
 
@@ -214,7 +217,8 @@ class Pipeline:
                                           #   -> CollectStream (spill-backed)
         self._tiled = False
         self._spill_root = None           # tiled without state_dir: temp dir
-        self._engine = None               # torch mode: TorchEngine
+        self._engine = None               # torch mode: TorchEngine, or
+                                          #   OutOfCoreTorchEngine
         self._result: Grid | None = None
         self._finalized = False
         self._cancelled = False
@@ -331,11 +335,22 @@ class Pipeline:
         self._tiled = False
         c = self.config
         if c.mesh_devices is not None or c.mesh_dp > 1 or c.mesh_sp > 1:
+            # once meshes arrive, a budget beside one is an InvalidArgument
+            # (pcr_tpu/engine/pipeline.py:304-316): the state is already
+            # sharded 1/N per device and bands do not fit shard row views
             raise _not_ported("multi-device meshes")
-        if c.gpu_memory_budget:
-            raise _not_ported("gpu_memory_budget out-of-core banding")
         device = device_override() or torch.device(
             "cuda", min(c.cuda_device_id, cuda_device_count() - 1))
+        # Out-of-core: when the state exceeds gpu_memory_budget, accumulate
+        # in host-resident row bands with a band-swapped device engine
+        # (reference: tile_manager.cpp:183-414).
+        if c.gpu_memory_budget:
+            from .out_of_core import OutOfCoreTorchEngine, pick_band_rows
+            band = pick_band_rows(cfg, self._plans, c.gpu_memory_budget)
+            if band:
+                self._engine = OutOfCoreTorchEngine(cfg, self._plans, band,
+                                                    device)
+                return
         self._engine = TorchEngine(cfg, self._plans, device)
 
     # -- state persistence ------------------------------------------------------

@@ -32,7 +32,7 @@ __all__ = ["W_TILE", "round_up", "col_tile", "padded_width",
            "GAUSS_WMIN", "ROT_ROW_BLOCK", "ROT_COL_TILE", "ROTP_ROW_BLOCK",
            "ROTP_RMAX", "WIRE_ENTRY_BUDGET", "INGEST_CHUNK_POINTS",
            "WIRE_COORD_MAX", "chunk_ranges", "gauss_product_cutoff_bites",
-           "gauss_corr_offsets", "rot_quadratic_segs"]
+           "gauss_corr_offsets", "centre_offset", "rot_quadratic_segs"]
 
 W_TILE = 256             # column tile width
 GAUSS_NARROW_MAX = 65    # widest Gaussian window on the narrow tile
@@ -174,7 +174,25 @@ def gauss_corr_offsets(r, sx, sy, max_k: int | None = None):
     return tuple((int(d[i]), int(d[j])) for i, j in np.argwhere(cand))
 
 
-def rot_quadratic_segs(gp, f0):
+def centre_offset(ic, sub, row_offset: int = 0):
+    """K4's and K5's centre offset -(ic + sub) in float32, from integer
+    cells `ic` (a numpy array or a torch tensor) and float32 sub-cell
+    offsets. An engine over a row-offset view (cfg.row_offset: an
+    out-of-core band, engine/out_of_core.py) passes its local cells and
+    its row_offset: the sum is then rounded at the full grid's row, as the
+    resident engine rounds it, and moved back by row_offset exactly, so
+    every cell's distance to the centre (row + offset) carries the
+    resident engine's bits."""
+    if isinstance(ic, np.ndarray):
+        f, o = ic.astype(np.float32), np.float32(row_offset)
+    else:
+        f, o = ic.float(), float(row_offset)
+    if not row_offset:
+        return -(f + sub)
+    return -((f + o) + sub) + o
+
+
+def rot_quadratic_segs(gp, f0, row_offset: int = 0):
     """Completed-square coefficients of the rotated-Gaussian quadratic
     form, shared bit-for-bit by the windowed (K5) and dense (K4) splat
     stagings. Same algebra as glyph_kernels.cu:145-176 (qx=(dx*cos
@@ -188,7 +206,8 @@ def rot_quadratic_segs(gp, f0):
     which splits per axis. sqrt(log2 e) rides the square-root coefficients
     so the kernel evaluates exp2(-q2') directly; the kernels scale their
     cutoff constant to ln(1e6)*log2e to match. Returns the first six seg
-    arrays [-ctr_x, -ctr_y, B/C, sqrt(C)*s, sqrt(A-B^2/C)*s, f0]."""
+    arrays [-ctr_x, -ctr_y, B/C, sqrt(C)*s, sqrt(A-B^2/C)*s, f0];
+    `row_offset` as in centre_offset."""
     inv_sx = np.float32(0.7071067811865476) / gp.sx
     inv_sy = np.float32(0.7071067811865476) / gp.sy
     c1 = gp.cos_rot * inv_sx
@@ -199,8 +218,8 @@ def rot_quadratic_segs(gp, f0):
     B = c1 * c2 + c3 * c4
     C = c2 * c2 + c4 * c4
     s_l2e = np.float32(1.2011224087864498)
-    return [-(gp.icx.astype(np.float32) + gp.sub_cx),
-            -(gp.icy.astype(np.float32) + gp.sub_cy),
+    return [centre_offset(gp.icx, gp.sub_cx),
+            centre_offset(gp.icy, gp.sub_cy, row_offset),
             B / C,
             np.sqrt(C) * s_l2e,
             np.sqrt(np.maximum(A - B * B / C, 0.0)) * s_l2e,

@@ -13,6 +13,15 @@ torch tensors.
     its own layout (see prepare_gaussian).
   * Max / Min / MostRecent / PriorityMerge keep flat (C,) states and go
     through torch scatters (order-free, so deterministic).
+  * Custom reductions (ops/reduction.register_custom_reduction; Point
+    glyph only) take their per-point fields from `info.fields` on the
+    host, as the CPU oracle does. A sum-kind op with K fields keeps K
+    grid-shaped planes and one host layout of (col, row, K fields) that K1
+    folds in ceil(K / 2) launches, two planes at a time (`field_launches`);
+    max / min / argmax_ts ops go through the scatters above. Their state is
+    finalized on the host by the op's own `finalize_arrays`. The
+    builtin-shaped fast paths (`_point_fields`, the device wire's modes,
+    `_wire_ok`) serve builtins only.
 
 Two routes build those layouts, and they build the same bytes:
 
@@ -49,6 +58,7 @@ place.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import threading
@@ -87,6 +97,8 @@ class StagedChunk:
           `params` (nsub, nseg, BLOCK) and `bids` (nsub,), views of one
           uploaded buffer, over (th, wt) tiles; `cut` is K2's product
           cutoff;
+      "fields" (K1 over a Custom op's K fields): `params` (nsub, 2 + K,
+          BLOCK) = (col, row, K fields), see TorchEngine.field_launches;
       "scatter": `params` (nseg, n) = [cells | value bits |
           (timestamp bits)] and bids None.
 
@@ -314,7 +326,11 @@ class TorchEngine:
     tensors: (H_pad, W_state) for the sum family (K1-K5), flat (C,)
     otherwise."""
 
-    def __init__(self, cfg: GridConfig, plans, device: torch.device):
+    def __init__(self, cfg: GridConfig, plans, device: torch.device,
+                 state: bool = True):
+        """`state=False` leaves the state tensors unallocated until the
+        first load_state (an out-of-core band engine loads every band it
+        commits to)."""
         self.cfg = cfg
         self.plans = plans
         self.device = torch.device(device)
@@ -332,35 +348,59 @@ class TorchEngine:
         self._grid_shaped = []
         self._states = []
         for spec, info in plans:
-            if not info.builtin:
-                raise _not_ported("Custom reductions on the device path")
             grid_shaped = info.scatter_kind == "sum"
-            shape = (self.H_pad, self.W_state) if grid_shaped else (self.C,)
             self._grid_shaped.append(grid_shaped)
             self._states.append([
-                torch.full(shape, float(info.identity[f]),
-                           dtype=torch.float32, device=self.device)
-                for f in range(info.state_floats)])
+                torch.full(self._state_shape(grid_shaped),
+                           float(info.identity[f]), dtype=torch.float32,
+                           device=self.device)
+                for f in range(info.state_floats)] if state else None)
+
+    def _state_shape(self, grid_shaped: bool):
+        return (self.H_pad, self.W_state) if grid_shaped else (self.C,)
+
+    def _row_view(self):
+        """(row_offset, global_height) of the row-offset view this engine's
+        cfg may be ((0, H) for a whole grid): its rows are rows
+        [row_offset, row_offset + H) of a grid of global_height rows."""
+        return (getattr(self.cfg, "row_offset", 0),
+                getattr(self.cfg, "global_height", self.H))
+
+    def band_view(self, row_offset: int, global_height: int):
+        """This engine over rows [row_offset, row_offset + H) of a grid of
+        `global_height` rows (an out-of-core band): the same state, arena
+        and kernels, with a cfg carrying the row-offset view that routing,
+        the home-tile clips (GaussGeom, _prepare_rotp) and the centre
+        offsets (tiling.centre_offset) read, so every home tile and every
+        centre is the full grid's."""
+        view = copy.copy(self)
+        view.cfg = dataclasses.replace(self.cfg)
+        view.cfg.row_offset, view.cfg.global_height = (row_offset,
+                                                       global_height)
+        view.geom = GaussGeom.of(view.cfg)
+        return view
 
     # -- state access --------------------------------------------------------
 
     def load_state(self, spec_idx: int, fields_hw) -> None:
-        """Replace the state from host (H, W) field arrays: resume, or state
-        carried across from another engine's fetch_state."""
+        """Replace the state from host field arrays of (h <= H, W): resume,
+        state carried across from another engine's fetch_state, or an
+        out-of-core band (the last band's h may fall short of H). Each is
+        copied in place into the state's first h rows, one copy from host
+        memory, and every other cell takes the identity; the state never
+        aliases the caller's array."""
         _, info = self.plans[spec_idx]
-        st = []
-        for fi, f in enumerate(fields_hw):
-            a = np.asarray(f, dtype=np.float32)
-            if self._grid_shaped[spec_idx]:
-                full = np.full((self.H_pad, self.W_state), info.identity[fi],
-                               np.float32)
-                full[: self.H, : self.W] = a
-                a = full
-            else:
-                a = a.reshape(-1)
-            # torch.tensor copies: the state never aliases the caller's array
-            st.append(torch.tensor(a, device=self.device))
-        self._states[spec_idx] = st
+        grid_shaped = self._grid_shaped[spec_idx]
+        if self._states[spec_idx] is None:
+            self._states[spec_idx] = [
+                torch.empty(self._state_shape(grid_shaped),
+                            dtype=torch.float32, device=self.device)
+                for _ in range(info.state_floats)]
+        for fi, (st, f) in enumerate(zip(self._states[spec_idx], fields_hw)):
+            src = torch.from_numpy(np.ascontiguousarray(f, dtype=np.float32))
+            st.fill_(float(info.identity[fi]))
+            dst = st if grid_shaped else st.view(self.H, self.W)
+            dst[: src.shape[0], : self.W].copy_(src)
 
     def _planes(self, spec_idx: int):
         """(H, W) views of the state fields."""
@@ -386,13 +426,17 @@ class TorchEngine:
     # -- staging -------------------------------------------------------------
 
     def _wire_ok(self, info) -> bool:
-        """The device layout serves the sum family on whole grids (its
-        home-tile clips know no row-offset shard view) whose cell
-        coordinates fit its int16 pairs. PCR_WIRE_CHEAP=0 sends every chunk
-        through the host layout instead (to look for a difference between
-        the routes; there must be none)."""
-        return (info.scatter_kind == "sum"
-                and not getattr(self.cfg, "row_offset", 0)
+        """The device layout serves the builtin sum family on whole grids,
+        and on row-offset views that start at a tile row (out-of-core
+        bands: rotp_finish reads the view, K2 and K4 clip in the kernel, a
+        Line's home row lies in the grid), whose cell coordinates fit its
+        int16 pairs. PCR_WIRE_CHEAP=0 sends every chunk through the host
+        layout instead (to look for a difference between the routes; there
+        must be none)."""
+        off = self._row_view()[0]
+        return (info.builtin and info.scatter_kind == "sum"
+                and (off % self.cfg.tile_height == 0
+                     or self.cfg.total_tiles() <= 1)
                 and self.W <= WIRE_COORD_MAX and self.H <= WIRE_COORD_MAX
                 and os.environ.get("PCR_WIRE_CHEAP", "1") == "1")
 
@@ -406,6 +450,21 @@ class TorchEngine:
             self._arena.give_back(hb)
             return None, None
         return self._arena.put(hb, nwords)
+
+    @staticmethod
+    def _custom_fields(info, valid, values, weights, timestamps, n):
+        """A Custom op's K per-point field arrays, float32, from
+        `info.fields` on the valid points' host arrays, as the CPU oracle
+        calls it (cpu_backend.accumulate_point_cpu); 0 at invalid points."""
+        valid = np.asarray(valid, bool)
+        sel = lambda a: None if a is None else np.asarray(a)[valid]
+        out = []
+        for fv in info.fields(np.asarray(values)[valid], sel(weights),
+                              sel(timestamps)):
+            full = np.zeros(n, np.float32)
+            full[valid] = np.asarray(fv, np.float32)
+            out.append(full)
+        return out
 
     @staticmethod
     def _point_fields(info, values, weights, n):
@@ -440,24 +499,35 @@ class TorchEngine:
                                                  values, weights, n)]
             col = np.where(valid, col, np.int32(-1)).astype(np.int32)
             row = np.where(valid, row, np.int32(-1)).astype(np.int32)
-            f0, f1 = self._point_fields(info, values, weights, n)
-            segs = [(col, -1), (row, -1), (f0, 0)]
-            if f1 is not None:
-                segs.append((f1, 0))
+            if info.builtin:
+                kind = "point"
+                fields = [f for f in self._point_fields(info, values,
+                                                        weights, n)
+                          if f is not None]
+            else:   # K1 over K field planes: see field_launches
+                kind = "fields"
+                fields = self._custom_fields(info, valid, values, weights,
+                                             timestamps, n)
+            segs = [(col, -1), (row, -1)] + [(f, 0) for f in fields]
             eb = ((np.maximum(row, 0) // TH) * self.ncb
                   + np.maximum(col, 0) // self.WT)
-            return [self._layout_upload("point", eb,
+            return [self._layout_upload(kind, eb,
                                         self.H_pad // TH * self.ncb, segs,
                                         None, n, TH, self.WT)]
         # scatter path (max / min / argmax_ts)
         if cells is None:
             cells = row * np.int32(self.W) + col
-        segs = [np.where(valid, cells, np.int32(self.C)).astype(np.int32),
-                np.asarray(values, np.float32).view(np.int32)]
-        if info.uses_timestamp:
-            ts = (np.asarray(timestamps, np.float32) if timestamps is not None
-                  else np.full(n, -FLT_MAX, np.float32))
-            segs.append(ts.view(np.int32))
+        cells = np.where(valid, cells, np.int32(self.C)).astype(np.int32)
+        if not info.builtin:
+            segs = [cells] + [f.view(np.int32) for f in self._custom_fields(
+                info, valid, values, weights, timestamps, n)]
+        else:
+            segs = [cells, np.asarray(values, np.float32).view(np.int32)]
+            if info.uses_timestamp:
+                ts = (np.asarray(timestamps, np.float32)
+                      if timestamps is not None
+                      else np.full(n, -FLT_MAX, np.float32))
+                segs.append(ts.view(np.int32))
 
         def fill(out):
             for g, arr in enumerate(segs):
@@ -722,13 +792,13 @@ class TorchEngine:
             eb, planes, fills, idx = device_prep.rotp_finish(
                 icx, icy, sub_cx, sub_cy, r, f0, valid, coef, self.W, self.H,
                 cfg.tile_width, cfg.tile_height, cfg.total_tiles() > 1,
-                plan.th, plan.wt, ncb)
+                plan.th, plan.wt, ncb, *self._row_view())
         else:
             idx, eb = device_prep.gauss_entries(icx, icy, r, valid, plan.th,
                                                 plan.wt, nrb, ncb)
             planes, fills = device_prep.gauss_finish(
                 plan.kind, icx, icy, sub_cx, sub_cy, sx, sy, r, f0, valid,
-                coef)
+                coef, self._row_view()[0])
         params, bids = device_prep.device_layout(eb, planes, nrb * ncb,
                                                  fills, idx)
         if plan.kind != "gauss":
@@ -746,7 +816,7 @@ class TorchEngine:
             return self._prepare_rotp(gp, valid, r, f0, n)
         th, wt = plan.th, plan.wt
         if plan.kind == "rot":
-            quad = rot_quadratic_segs(gp, f0)
+            quad = rot_quadratic_segs(gp, f0, self._row_view()[0])
             segs = [(q, 0.0) for q in quad] + [
                 (gp.icx.astype(np.float32), 0.0),
                 (gp.icy.astype(np.float32), 0.0),
@@ -786,10 +856,10 @@ class TorchEngine:
         rlo = np.maximum(icy - rr, 0)
         rhi = np.minimum(icy + rr, H1)
         cfg = self.cfg
+        off, Hg = self._row_view()
         if cfg.total_tiles() > 1:
             tw, th_t = cfg.tile_width, cfg.tile_height
-            off = getattr(cfg, "row_offset", 0)
-            Hg1 = getattr(cfg, "global_height", self.H) - 1
+            Hg1 = Hg - 1
             cs = (np.clip(icx, 0, W1) // tw) * tw
             rs = (np.clip(icy + off, 0, Hg1) // th_t) * th_t
             wlo = np.maximum(wlo, cs)
@@ -802,7 +872,7 @@ class TorchEngine:
         ncb = self.W_state // wt
         idx, eb = halo_copies(rlo // th, np.where(alive, rhi // th, -1),
                               wlo // wt, whi // wt, ncb)
-        quad = rot_quadratic_segs(gp, f0)
+        quad = rot_quadratic_segs(gp, f0, off)
         segs = [(quad[0], 0.0), (quad[1], 0.0), (quad[2], 0.0),
                 (quad[3], 1.0), (quad[4], 0.0), (quad[5], 0.0),
                 (wlo.astype(np.float32), 1.0), (whi.astype(np.float32), 0.0),
@@ -956,6 +1026,12 @@ class TorchEngine:
             if chunk.ready is not None:
                 torch.cuda.current_stream(self.device).wait_event(chunk.ready)
             p = chunk.params
+            if chunk.kind == "fields":
+                for k, params, with_f1 in self.field_launches(chunk):
+                    sorted_splat_point(st[k:k + 1 + with_f1], params,
+                                       chunk.bids, th=chunk.th, wt=chunk.wt,
+                                       with_f1=with_f1)
+                continue
             if chunk.kind != "scatter":
                 kernel, _, kw = self.splat_fns(chunk)
                 kernel(st, p, chunk.bids, **kw)
@@ -970,6 +1046,23 @@ class TorchEngine:
             else:
                 _argmax_ts_update(st, cells, values, p[2].view(torch.float32),
                                   self.C)
+
+    @staticmethod
+    def field_launches(chunk: StagedChunk):
+        """K1's launches over a Custom op's (col, row, K fields) chunk:
+        [(first plane k, params, with_f1)], planes k and k + 1 together
+        (with_f1), and the last one alone when K is odd. K1 takes one
+        field, or two with with_f1; each launch gets its own contiguous
+        (nsub, 3 | 4, BLOCK) params, which for K <= 2 is the chunk's."""
+        p = chunk.params
+        K = p.shape[1] - 2
+        out = []
+        for k in range(0, K, 2):
+            w = min(2, K - k)
+            sub = (p if K == w else
+                   torch.cat([p[:, :2], p[:, 2 + k:2 + k + w]], dim=1))
+            out.append((k, sub, w == 2))
+        return out
 
     def splat_fns(self, chunk: StagedChunk):
         """(kernel, its plain version, their keywords) for a tiled chunk."""
@@ -997,6 +1090,9 @@ class TorchEngine:
         so the shared finalize code can np.asarray the result."""
         _, info = self.plans[spec_idx]
         planes = self._flushed_planes(spec_idx)
+        if not info.builtin and not with_state:
+            host = [f.to("cpu", copy=True).numpy() for f in planes]
+            return np.asarray(info.finalize_arrays(host), np.float32)[None]
         out = (torch.stack(planes) if with_state
                else finalize_fields(info, planes)[None])
         return out.to("cpu", copy=True).numpy()

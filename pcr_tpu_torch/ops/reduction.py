@@ -25,11 +25,14 @@ additionally carries a *vectorized plan*:
   * ``merge_arrays`` / ``finalize_arrays`` are whole-grid vectorized
     equivalents of merge/finalize.
 
-The host layers only ever hand the registry numpy arrays (pcr_tpu's jnp
-branch, `_xp`, is left out). State that lives in torch tensors finalizes
-through `finalize_fields` and `gauss_state_flush` at the end of this file,
-the torch forms of the builtin finalizes (:170-254) and of
-tpu_backend.gauss_state_flush.
+The vectorized merges and finalizes take numpy arrays or torch tensors
+(any device): `_xp` picks the module, where pcr_tpu's picks numpy or
+jax.numpy (engine/grid_merge.py merges device states through them). The
+device engines finalize their tensors through `finalize_fields` and
+`gauss_state_flush` at the end of this file, the torch forms of the builtin
+finalizes (:170-254) and of tpu_backend.gauss_state_flush; a Custom op's
+state is finalized on the host, from its fetched planes, by its own
+`finalize_arrays`.
 """
 
 from __future__ import annotations
@@ -183,9 +186,9 @@ def _fin_sum(state):
 
 
 def _xp(arr):
-    """The array module of the host forms: numpy (device tensors finalize
-    through finalize_fields)."""
-    return np
+    """The array module of `arr`: torch for a tensor (any device), numpy
+    otherwise."""
+    return torch if isinstance(arr, torch.Tensor) else np
 
 
 def _native_fin():
@@ -497,21 +500,26 @@ def gauss_state_flush(spec, info: ReductionInfo, fields):
     empty-cell NaN footprint is exact (tpu_backend.gauss_state_flush,
     :314-341). Every legitimate Gaussian deposit weighs >= 1e-6, so a
     weight sum under GAUSS_WMIN is a residue, never data. Point and Line
-    specs and Sum states pass through. Returns new tensors; the inputs
-    are not changed."""
+    specs and Sum states pass through. Takes tensors or numpy arrays
+    (the host state of an out-of-core run) and returns new ones; the
+    inputs are not changed."""
     if GlyphType(spec.glyph.type) != GlyphType.Gaussian:
         return fields
     rtype = ReductionType(info.type)
+    xp = _xp(fields[0])
+    zero = 0.0 if xp is torch else np.float32(0.0)
     if rtype in (ReductionType.Average, ReductionType.WeightedAverage):
         keep = fields[1] >= float(GAUSS_WMIN)
-        return [torch.where(keep, f, 0.0) for f in fields]
+        return [xp.where(keep, f, zero) for f in fields]
     if rtype == ReductionType.Count:
-        return [torch.where(fields[0] >= float(GAUSS_WMIN), fields[0], 0.0)]
+        return [xp.where(fields[0] >= float(GAUSS_WMIN), fields[0], zero)]
     return fields
 
 
 def finalize_fields(info: ReductionInfo, fields) -> torch.Tensor:
-    """Per-cell output of a builtin reduction (NaN = no data)."""
+    """Per-cell output of a builtin reduction (NaN = no data). A Custom
+    op's `finalize_arrays` is the user's numpy code: the engines run it on
+    the host, on the fetched planes."""
     rtype = ReductionType(info.type)
     s = fields[0]
     nan = torch.full((), float("nan"), dtype=s.dtype, device=s.device)
@@ -529,4 +537,5 @@ def finalize_fields(info: ReductionInfo, fields) -> torch.Tensor:
         return torch.where(c > 0.0, s / torch.where(c > 0.0, c, 1.0), nan)
     raise PcrError(Status.error(
         StatusCode.NotImplemented,
-        f"pcr_tpu_torch: device finalize of {rtype.name} not yet ported"))
+        f"pcr_tpu_torch: no device finalize of {rtype.name}: finalize "
+        f"its fetched planes with info.finalize_arrays"))

@@ -727,3 +727,169 @@ def test_hybrid_workers_and_both_routes_give_the_same_bits(card, glyph,
     assert len(dev.per_spec[0]) == 20
     for mode, workers in ((GPU, 0), (HYBRID, 1), (HYBRID, 4), (HYBRID, 4)):
         assert np.array_equal(run(mode, workers=workers)[0], want)
+
+
+# -- out-of-core bands and Custom reductions ----------------------------------
+
+BANDED = {
+    "point": (lambda: pcr.ReductionSpec(value_channel="v",
+                                        type=RT.WeightedAverage,
+                                        weight_channel="ts"),
+              kernels.sorted_splat_point),
+    "gauss": (lambda: pcr.gaussian_splat_spec("v", default_sigma=3.0),
+              gk.sorted_splat_gauss),
+    "rotp": (lambda: pcr.gaussian_splat_spec("v", default_sigma_x=4.0,
+                                             default_sigma_y=1.5,
+                                             default_rotation=0.6),
+             gk.rot_splat_packed),
+    "rot": (lambda: pcr.gaussian_splat_spec("v", default_sigma_x=8.0,
+                                            default_sigma_y=3.0,
+                                            default_rotation=0.6),
+            gk.rot_splat_dense),
+    "line": (lambda: pcr.line_splat_spec("v", default_direction=0.7,
+                                         default_half_length=9.0), None),
+}
+
+
+def positive_cloud(n, seed, w, h):
+    c = make_cloud(n, seed, w, h)
+    c.set_channel_array_f32("v", np.abs(c.channel_array_f32("v")) + 0.5)
+    c.set_channel_array_f32("ts", c.channel_array_f32("ts") + 1.0)
+    return c
+
+
+@pytest.mark.parametrize("grid", ["tiled", "untiled"])
+@pytest.mark.parametrize("glyph", list(BANDED))
+def test_banded_pipeline_matches_resident(card, glyph, grid, monkeypatch):
+    """Each glyph under a gpu_memory_budget that bands, on a 64-cell-tiled
+    grid and on an untiled one (entries copied across bands): within 1e-5
+    of the resident band (K1-K5 sum a sub-chunk before the state, and a
+    band has other sub-chunks) and of the numpy oracle, reruns
+    bit-identical, staged = host-sourced bit for bit, the glyph's kernel
+    launched."""
+    from pcr_tpu_torch.engine import line_kernels as lk
+    from pcr_tpu_torch.engine.out_of_core import OutOfCoreTorchEngine
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    make_spec, kern = BANDED[glyph]
+    kern = kern or lk.rect_splat
+    gc = (make_grid_config(w=600.0, h=520.0, tile=64) if grid == "tiled"
+          else make_grid_config(w=600.0, h=600.0))
+    c = positive_cloud(100_000, 51, 600.0, 600.0)
+
+    def band(budget, staged=False, mode=pcr.ExecutionMode.GPU):
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=[make_spec()], exec_mode=mode,
+            gpu_require_strict=True, gpu_memory_budget=budget))
+        p.ingest(p.stage(c) if staged else c)
+        p.finalize()
+        return p, p.result().band_array(0)
+
+    _, want = band(0)
+    _, oracle = band(0, mode=pcr.ExecutionMode.CPU)
+    before = kern.launches
+    p, got = band(1 << 18)
+    assert isinstance(p._engine, OutOfCoreTorchEngine)
+    assert p._engine.nbands > 1 and p._engine.device.type == "cuda"
+    assert kern.launches > before
+    for ref in (want, oracle):
+        np.testing.assert_allclose(got, ref, atol=TOL, rtol=TOL)
+        assert np.array_equal(np.isnan(got), np.isnan(ref))
+    for staged in (False, True):
+        assert np.array_equal(band(1 << 18, staged)[1].view(np.int32),
+                              got.view(np.int32))
+
+
+@pytest.mark.parametrize("glyph", ["gauss", "rotp", "rot"])
+def test_banded_lower_edge_centres_keep_their_footprint(card, glyph,
+                                                        monkeypatch):
+    """Gaussians centred on the grid's lower edge (centre row H) on a grid
+    of whole 64-cell tiles whose last 128-row band is partial: the band's
+    row-offset view clamps their home tile to the last tile row, as the
+    resident engine does, so the banded band is within 1e-5 of the
+    resident one and of the oracle, footprints included."""
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    from pcr_tpu_torch.engine.out_of_core import OutOfCoreTorchEngine
+    gc = make_grid_config(w=300.0, h=320.0, tile=64)
+    c = positive_cloud(20_000, 54, 300.0, 320.0)
+    y = c.y_array().copy()
+    y[:5000] = gc.bounds.min_y
+    c.set_y_array(y)
+    bands = []
+    for mode, budget in ((pcr.ExecutionMode.GPU, 1 << 21),
+                         (pcr.ExecutionMode.GPU, 0),
+                         (pcr.ExecutionMode.CPU, 0)):
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=[BANDED[glyph][0]()], exec_mode=mode,
+            gpu_require_strict=True, gpu_memory_budget=budget))
+        p.ingest(c)
+        p.finalize()
+        if budget:
+            assert isinstance(p._engine, OutOfCoreTorchEngine)
+            assert p._engine.nbands == 3 and p._engine.band_rows == 128
+        bands.append(p.result().band_array(0))
+    assert not np.isnan(bands[1][-1]).all()
+    for ref in bands[1:]:
+        np.testing.assert_allclose(bands[0], ref, atol=TOL, rtol=TOL)
+        assert np.array_equal(np.isnan(bands[0]), np.isnan(ref))
+
+
+def test_band_swap_flushes_gaussian_residues(card):
+    """A Gaussian weight sum under GAUSS_WMIN in a band is zeroed when the
+    band leaves the card."""
+    from pcr_tpu_torch.engine import routing
+    from pcr_tpu_torch.engine.out_of_core import OutOfCoreTorchEngine
+    gc = make_grid_config(w=512.0, h=512.0, tile=128)
+    spec = pcr.gaussian_splat_spec("v", default_sigma=2.0)
+    spec.type = RT.Average
+    eng = OutOfCoreTorchEngine(gc, [(spec, pcr.get_reduction_info(RT.Average))],
+                               128, card)
+    fields = [np.zeros((512, 512), np.float32) for _ in range(2)]
+    fields[0][5, 5], fields[1][5, 5] = 1e-7, 1e-7
+    fields[0][6, 6], fields[1][6, 6] = 3.0, 1.5
+    eng.load_state(0, fields)
+    rng = np.random.default_rng(52)
+    x = rng.uniform(100, 512, 2000)             # far from the residue
+    y = np.concatenate([rng.uniform(0, 120, 1000),
+                        rng.uniform(384, 504, 1000)])
+    gp = routing.gaussian_params(spec.glyph, gc, x, y, None, None, None)
+    staged = eng.prepare_gaussian(0, gp, np.ones(2000, bool),
+                                  np.ones(2000, np.float32), wire_cheap=True)
+    assert [b for b, _ in staged] == [0, 3]
+    eng.commit(0, staged)
+    host = eng._host[0]
+    assert host[0][5, 5] == 0.0 and host[1][5, 5] == 0.0
+    assert host[1][6, 6] >= 1.5 and eng.stats["swaps"] == 2
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_sum_custom_launches_k1(card, k, monkeypatch):
+    """A K-field sum custom runs ceil(K / 2) K1 launches a chunk on the
+    card, matches the oracle within 1e-5 and reruns bit for bit."""
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    gc = make_grid_config(w=300.0, h=200.0, tile=128)
+    c = make_cloud(200_000, seed=53, w=300.0, h=200.0)
+    pcr.register_custom_reduction(
+        state_floats=k, identity=(0.0,) * k, scatter_kind="sum",
+        fields=lambda v, w, t: [v, v * v, v * 0 + 1.0][:k],
+        merge_arrays=lambda a, b: [x + y for x, y in zip(a, b)],
+        finalize_arrays=lambda f: f[0] + f[k - 1] * 2.0)
+    try:
+        bands = []
+        for mode in (pcr.ExecutionMode.GPU, pcr.ExecutionMode.GPU,
+                     pcr.ExecutionMode.CPU):
+            p = pcr.Pipeline.create(pcr.PipelineConfig(
+                grid=gc, reductions=[pcr.ReductionSpec(
+                    value_channel="v", type=RT.Custom)],
+                exec_mode=mode, gpu_require_strict=True))
+            before = kernels.sorted_splat_point.launches
+            p.ingest(c)
+            p.finalize()
+            if mode == pcr.ExecutionMode.GPU:
+                assert (kernels.sorted_splat_point.launches - before
+                        == -(-k // 2))
+            bands.append(p.result().band_array(0))
+    finally:
+        pcr.unregister_reduction(RT.Custom)
+    assert np.array_equal(bands[0].view(np.int32), bands[1].view(np.int32))
+    np.testing.assert_allclose(bands[0], bands[2], atol=TOL, rtol=TOL)
+    assert np.array_equal(np.isnan(bands[0]), np.isnan(bands[2]))

@@ -5,7 +5,9 @@ both packages: the numpy CPU oracle (Point, Gaussian and Line specs) gives
 bit-identical bands; a GeoTIFF or a PCRT tile state written by one package
 is read, or resumed, by the other with the same bytes; routing, the tiling
 constants, the reduction registry, the native helpers and point-cloud I/O
-agree; and the port's Grid keeps Device bands in torch tensors.
+agree; the port's Grid keeps Device bands in torch tensors; and the
+test-data generators, raster comparison, rendering, rasterio bridge and
+phase timer agree, with the port's trace() on torch.profiler.
 """
 
 import os
@@ -306,3 +308,139 @@ def test_device_grid_holds_torch_tensors():
                           equal_nan=True)
     band[0, 0] = 99.0                   # the grid never aliases the input
     assert float(g.band_array(0)[0, 0]) == 0.0
+
+
+# -- testing/, utils/ and io/rasterio_bridge.py --------------------------------
+
+from pcr_tpu.testing import generators as _ref_generators  # noqa: E402
+
+GENERATORS = [g for g in _ref_generators.__all__ if g.startswith("generate_")]
+
+
+def _flat(obj):
+    """The arrays and numbers of a generator's result, in order."""
+    if isinstance(obj, (list, tuple)):
+        return [x for o in obj for x in _flat(o)]
+    if hasattr(obj, "x_array"):
+        return [obj.x_array(), obj.y_array()] + [
+            obj.channel_array(n) for n in obj.channel_names()]
+    if isinstance(obj, dict):
+        return [x for k in sorted(obj) for x in [k] + _flat(obj[k])]
+    return [np.asarray(obj)]
+
+
+@pytest.mark.parametrize("name", GENERATORS)
+def test_generators_are_the_same(name):
+    import pcr_tpu.testing as ref_testing
+    import pcr_tpu_torch.testing as port_testing
+    outs = []
+    for mod in (ref_testing, port_testing):
+        gc = mod.generators.make_grid_config(64, 48, tile=32)
+        outs.append(_flat(getattr(mod.generators, name)(gc)))
+    assert len(outs[0]) == len(outs[1])
+    for a, b in zip(*outs):
+        a, b = np.asarray(a), np.asarray(b)
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind in "fc")
+
+
+def test_generated_raster_through_the_port_device_path():
+    """A checkerboard from the port's generators, rasterized by the port's
+    device path (torch-CPU here), matches its analytic raster by the
+    port's own comparison."""
+    import pcr_tpu_torch.testing as port_testing
+    gen = port_testing.generators
+    gc = gen.make_grid_config(64, 48, tile=32)
+    c, want = gen.generate_checkerboard(gc)
+    p = port.Pipeline.create(port.PipelineConfig(
+        grid=gc, reductions=[port.ReductionSpec(value_channel="value",
+                                                type=RT.Average)],
+        exec_mode=port.ExecutionMode.GPU))
+    p.ingest(c)
+    p.finalize()
+    port_testing.assert_rasters_match(p.result().band_array(0), want,
+                                      label="checkerboard")
+
+
+def test_compare_is_the_same():
+    import pcr_tpu.testing as ref_testing
+    import pcr_tpu_torch.testing as port_testing
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(20, 30)).astype(np.float32)
+    b = a + rng.normal(scale=2e-5, size=a.shape).astype(np.float32)
+    b[3, 4] = np.nan
+    for x, y in ((a, a), (a, b), (a, a[:, :29])):
+        r = ref_testing.compare_rasters(x, y)
+        t = port_testing.compare_rasters(x, y)
+        assert (r.ok, r.max_diff, r.num_different, r.nan_mismatch,
+                r.cells_compared) == (t.ok, t.max_diff, t.num_different,
+                                      t.nan_mismatch, t.cells_compared)
+        assert str(r) == str(t)
+    with pytest.raises(AssertionError):
+        port_testing.assert_rasters_match(a, b, label="b")
+
+
+@pytest.mark.parametrize("cmap", ["viridis", "gray"])
+def test_visualization_is_the_same(cmap, tmp_path):
+    from pcr_tpu.utils import visualization as ref_vis
+    from pcr_tpu_torch.utils import visualization as port_vis
+    band = np.linspace(-1, 3, 600, dtype=np.float32).reshape(20, 30)
+    band[::7, ::5] = np.nan
+    assert ref_vis.coverage(band) == port_vis.coverage(band)
+    for kw in ({}, dict(vmin=0.0, vmax=1.0)):
+        assert np.array_equal(ref_vis.render_band(band, cmap, **kw),
+                              port_vis.render_band(band, cmap, **kw))
+    pytest.importorskip("PIL")
+    for mod, name in ((ref_vis, "a.png"), (port_vis, "b.png")):
+        mod.save_png(str(tmp_path / name), band, cmap)
+    assert (tmp_path / "a.png").read_bytes() == (tmp_path / "b.png").read_bytes()
+
+
+def test_rasterio_bridge_is_the_same():
+    from pcr_tpu.io import rasterio_bridge as ref_rb
+    from pcr_tpu_torch.io import rasterio_bridge as port_rb
+    gc = grid()
+    a = ref_rb.grid_profile(gc, 3)
+    b = port_rb.grid_profile(like(port, gc), 3)
+    assert np.isnan(a.pop("nodata")) and np.isnan(b.pop("nodata"))
+    assert a == b
+    assert ref_rb.rasterio_available() == port_rb.rasterio_available()
+    if not port_rb.rasterio_available():
+        g = port.Grid.create(4, 3, [port.BandDesc(name="a")])
+        with pytest.raises(port.PcrError) as e:
+            port_rb.to_rasterio("x.tif", g, like(port, gc))
+        assert e.value.status.code == port.StatusCode.NotImplemented
+        with pytest.raises(port.PcrError):
+            port_rb.from_rasterio("x.tif")
+
+
+def test_phase_timer_is_the_same():
+    from pcr_tpu.utils import PhaseTimer as RefTimer
+    from pcr_tpu_torch.utils import PhaseTimer
+    for cls in (RefTimer, PhaseTimer):
+        t = cls()
+        for _ in range(3):
+            with t.phase("ingest"):
+                pass
+        with t.phase("finalize"):
+            pass
+        assert t.counts["ingest"] == 3 and t.seconds("ingest") >= 0.0
+        assert t.seconds("nothing") == 0.0
+        assert sorted(t.summary()) == ["finalize", "ingest"]
+        assert t.summary()["ingest"]["calls"] == 3
+        assert "ingest" in t.report() and '"calls": 3' in t.to_json()
+
+
+def test_trace_on_torch_profiler(tmp_path):
+    """trace() records the block with torch.profiler and writes a Chrome
+    trace; without a log_dir it records nothing."""
+    import json
+    from pcr_tpu_torch.utils import trace
+    with trace(None) as prof:
+        assert prof is None
+    assert not list(tmp_path.iterdir())
+    with trace(str(tmp_path / "tr")) as prof:
+        torch.ones(64).add_(1.0).sum()
+    names = {e.key for e in prof.key_averages()}
+    assert "aten::add_" in names
+    (path,) = (tmp_path / "tr").iterdir()
+    assert "traceEvents" in json.loads(path.read_text())

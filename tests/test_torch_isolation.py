@@ -53,6 +53,11 @@ def test_the_sources_are_found():
     assert "pcr_tpu_torch/engine/pipeline.py" in SOURCES
     assert "pcr_tpu_torch/native/__init__.py" in SOURCES
     assert "pcr_tpu_torch/engine/device_prep.py" in SOURCES
+    for new in ("engine/out_of_core.py", "engine/grid_merge.py",
+                "testing/generators.py", "testing/compare.py",
+                "utils/profiling.py", "utils/visualization.py",
+                "io/rasterio_bridge.py"):
+        assert f"pcr_tpu_torch/{new}" in SOURCES
     assert len(SOURCES) > 30
 
 

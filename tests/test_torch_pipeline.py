@@ -304,37 +304,16 @@ def test_host_ingest_takes_the_k1_layout():
     assert torch.equal(a.params, b.params) and torch.equal(a.bids, b.bids)
 
 
-def _register_rms():
-    for pkg in (ref, port):     # each package keeps its own registry
-        pkg.register_custom_reduction(
-            state_floats=2, identity=(0.0, 0.0), scatter_kind="sum",
-            fields=lambda v, w, t: [v * v, v * 0 + 1.0],
-            merge_arrays=lambda a, b: [a[0] + b[0], a[1] + b[1]],
-            finalize_arrays=lambda f: (f[0] / f[1]) ** 0.5)
-
-
-@pytest.mark.parametrize("case", ["custom", "gpu_memory_budget", "mesh"])
+@pytest.mark.parametrize("case", ["mesh"])
 def test_unported_features_refuse_on_the_device(case):
-    specs, cfg = [spec(RT.Average)], {}
-    if case == "custom":
-        _register_rms()
-        specs = [ref.ReductionSpec(value_channel="v", type=RT.Custom)]
-    elif case == "gpu_memory_budget":
-        cfg["gpu_memory_budget"] = 1 << 16
-    else:
-        cfg["mesh_sp"] = 2
-    try:
-        with pytest.raises(port.PcrError, match="not yet ported") as e:
-            make(port, GPU, specs, **cfg)
-        assert e.value.status.code == port.StatusCode.NotImplemented
-        # the CPU backend runs it as pcr_tpu does
-        _, got = run(port, CPU, specs, [cloud(seed=9)], **cfg)
-        _, want = run(ref, CPU, specs, [cloud(seed=9)], **cfg)
-        assert np.array_equal(got[0], want[0], equal_nan=True)
-    finally:
-        if case == "custom":
-            for pkg in (ref, port):
-                pkg.unregister_reduction(RT.Custom)
+    specs, cfg = [spec(RT.Average)], {"mesh_sp": 2}
+    with pytest.raises(port.PcrError, match="not yet ported") as e:
+        make(port, GPU, specs, **cfg)
+    assert e.value.status.code == port.StatusCode.NotImplemented
+    # the CPU backend runs it as pcr_tpu does
+    _, got = run(port, CPU, specs, [cloud(seed=9)], **cfg)
+    _, want = run(ref, CPU, specs, [cloud(seed=9)], **cfg)
+    assert np.array_equal(got[0], want[0], equal_nan=True)
 
 
 @pytest.mark.parametrize("case", ["strict", "fallback", "no_fallback",
