@@ -113,13 +113,39 @@ Phases:
       points) against the oracle: RMS (K = 2, one K1 launch a chunk), a
       K = 3 sum op (two launches), a max-kind op (exact, the torch
       scatter), and the K = 3 op under a 12 MiB budget that bands it
-      (two launches a band); reruns bit-identical.
+      (two launches a band); reruns bit-identical;
+  (n) multi-device meshes (pcr_tpu_torch/parallel), four shards on the one
+      card (mesh_devices = [cuda:0] * 4): on a 4096x4096 grid of one tile
+      (ShardedTorchEngine) 20M points, Average + Max + MostRecent, at
+      (dp, sp) = (2, 2) and (1, 4), then Gaussian sigma 4 and Line half
+      length 16 Average 5M at sp = 4 (footprints cross the shard borders);
+      on tiled grids (PartitionedTorchEngine) (e)'s 8192x8192 20M Average
+      with state_dir + GeoTIFF read back + a resume, and rotated 8 x 3 (K4)
+      and 4 x 1.5 (K5) Average 1M on 4096x4096 in 512-cell tiles, every
+      centre within r rows of a shard border; each against the resident
+      engine's band of the same cloud (Average within 1e-5, Gaussians at
+      gauss_rtol, Max and MostRecent exactly); (d)'s quickstart at
+      (2, 2) against its oracle bands; the library steps of
+      parallel/sharding.py on 1000x1000 against the resident engine's
+      state (the rotated step against the oracle's, whose algebra it
+      shares), each run twice, bit-identical. Each mesh row: three runs
+      (staged, then one host-sourced run more, bits equal), the engine,
+      its shards, the launches of K1-K5, the best walls and the peak
+      device memory of one run beside the resident engine's, and the
+      row's kernel against its plain version on the middle and last
+      shards' staged chunks (K2 and K4 at gauss_rtol, K1, K3 and K5 at the
+      row's tolerance), reruns bit-identical.
+The card's SM clock, temperature, power draw and active clock-limit
+reasons are printed ("card state") after the build and after each phase
+that times a kernel ((b), (f), (h), (j)), and beside the kernels line, so
+a slow run shows whether the card was held back.
 Every pipeline runs with gpu_require_strict and must run on a TorchEngine
 on the card (an OutOfCoreTorchEngine of several bands where (l) and (m)
-set a budget), through its kernels: each path is driven with the launch
+set a budget, a mesh engine with every shard on the card where (n) sets
+a mesh), through its kernels: each path is driven with the launch
 counters set to 0 just before it and read just after; the kernels line
-counts the launches of the main paths and of (l) and (m). Nothing of pcr_tpu or
-jax may be imported (checked at the end). The line before last is a JSON
+counts the launches of the main paths and of (l), (m) and (n). Nothing of
+pcr_tpu or jax may be imported (checked at the end). The line before last is a JSON
 summary of the kernels, each with its bound: the larger of the bytes it
 must move (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations its data needs over 67 TFLOP/s (the H100 SXM's
@@ -143,6 +169,29 @@ ORACLE_S = []           # the CPU oracle's ingest walls, for the last report
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_FLOP_S = 67e12      # H100 SXM float32 peak outside the tensor cores
 SM_CLOCK_HZ = 1.98e9    # H100 SXM top SM clock; a float32 add takes 4 clocks
+
+
+SMI_STATE = ("clocks.sm,clocks.max.sm,temperature.gpu,power.draw,"
+             "power.limit")
+
+
+def card_state(where):
+    """Print the card's SM clock (and its maximum), temperature, power
+    draw and limit and the active clock-limit reasons, as nvidia-smi reads
+    them now; nvidia-smi names the reasons clocks_event_reasons in newer
+    drivers and clocks_throttle_reasons in older ones."""
+    for reasons in ("clocks_event_reasons.active",
+                    "clocks_throttle_reasons.active"):
+        smi = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={SMI_STATE},{reasons}",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        if smi.returncode == 0:
+            print(f"card state {where}: {SMI_STATE},{reasons} = "
+                  f"{smi.stdout.strip().splitlines()[0]}")
+            return
+    print(f"card state {where}: nvidia-smi could not read it: "
+          f"{smi.stdout.strip()} {smi.stderr.strip()}")
 
 
 def check(cond, msg):
@@ -200,12 +249,17 @@ def cloud(pcr, n, lo, hi, vmax, seed, ts=False, line_channels=False):
 
 
 def run_pipeline(pcr, gc, specs, c, mode, staged=False, state_dir="",
-                 output_path="", workers=0, chunk_size=0, budget=0):
+                 output_path="", workers=0, chunk_size=0, budget=0,
+                 mesh=None):
     """One pipeline lifecycle; returns (pipeline, bands, walls). With a
     `budget` the pipeline must band (an OutOfCoreTorchEngine of more than
-    one band); without one it must run resident."""
+    one band); with a `mesh` ({"mesh_devices": ..., "mesh_dp": ...,
+    "mesh_sp": ...}) it must run a mesh engine, every shard on the card;
+    without either it must run resident."""
     import torch
     cfg = pcr.PipelineConfig()
+    for k, v in (mesh or {}).items():
+        setattr(cfg, k, v)
     cfg.gpu_memory_budget = budget
     cfg.hybrid_cpu_threads = workers
     cfg.chunk_size = chunk_size
@@ -226,7 +280,16 @@ def run_pipeline(pcr, gc, specs, c, mode, staged=False, state_dir="",
     t3 = time.perf_counter()
     p.finalize()
     t4 = time.perf_counter()
-    if mode != pcr.ExecutionMode.CPU:
+    if mode != pcr.ExecutionMode.CPU and mesh:
+        from pcr_tpu_torch.parallel.engine import (PartitionedTorchEngine,
+                                                   ShardedTorchEngine)
+        eng = p._engine
+        check(isinstance(eng, (ShardedTorchEngine, PartitionedTorchEngine))
+              and all(e.device.type == "cuda" for e in eng.owners),
+              f"the mesh pipeline runs on {eng!r}, not a mesh engine with "
+              f"every shard on the card")
+        torch.cuda.synchronize()
+    elif mode != pcr.ExecutionMode.CPU:
         eng = p._engine
         from pcr_tpu_torch.engine.out_of_core import OutOfCoreTorchEngine
         from pcr_tpu_torch.engine.torch_backend import TorchEngine
@@ -1200,6 +1263,377 @@ def phase_m(torch, pcr, kernels):
     return total
 
 
+def best_walls(walls):
+    return {k: min(w[k] for w in walls) for k in ("stage", "ingest",
+                                                   "finalize")}
+
+
+def peak_runs(torch, n, run):
+    """`run()` n times, each from a fresh peak-memory count with nothing
+    of the earlier runs left on the card; (first run's result, every run's
+    walls, the largest peak device bytes)."""
+    first, walls, peak = None, [], 0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        walls.append(out[-1])
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        first = first or out
+        del out
+    return first, walls, peak
+
+
+def resident_ref(torch, pcr, gc, specs, c, reps=3, staged=True):
+    """(n): the resident engine's bands of a cloud (staged, or
+    host-sourced), its best walls of `reps` runs and its peak."""
+    def run():
+        _, bands, w = run_pipeline(pcr, gc, specs, c, pcr.ExecutionMode.GPU,
+                                   staged=staged)
+        return bands, w
+    (bands, _), walls, peak = peak_runs(torch, reps, run)
+    return bands, best_walls(walls), peak
+
+
+def mesh_row(torch, pcr, fns, label, gc, specs, c, mesh, want, resident,
+             need, exact=(), rtol=TOL, reps=3, staged=True):
+    """One row of (n): `reps` runs of a mesh pipeline (staged, then one
+    host-sourced run more, or host-sourced), every rerun bit-identical to
+    the first, with the launch counters of `fns` set to 0 just before and
+    read just after (each kernel in `need` must have launched); each band
+    against the bands `want` (the resident engine's, or the oracle's),
+    exact where listed, else within atol = rtol = `rtol`. `resident` is
+    the resident engine's (best walls, peak device bytes). Returns the
+    launches."""
+    for f in fns.values():
+        f.launches = 0
+    modes = [staged] * reps + ([False] if staged else [])
+
+    seen = []
+
+    def run():
+        staged_ = modes.pop(0)
+        p, bands, w = run_pipeline(pcr, gc, specs, c, pcr.ExecutionMode.GPU,
+                                   staged=staged_, mesh=mesh)
+        check(not seen or all(np.array_equal(a.view(np.int32),
+                                             b.view(np.int32))
+                              for a, b in zip(bands, seen[0])),
+              f"(n) {label}: a rerun's bits differ")
+        seen[:] = seen or [bands]
+        eng = p._engine
+        return (type(eng).__name__, getattr(eng, "dp", None),
+                getattr(eng, "sp", None), eng.nshards, bands, w)
+    first, walls, peak = peak_runs(torch, len(modes), run)
+    launches = {k: f.launches for k, f in fns.items()}
+    for k in need:
+        check(launches[k] >= 1, f"(n) {label}: {k} never launched")
+    name, dp, sp, nshards, bands, _ = first
+    want_engine = ("ShardedTorchEngine" if gc.total_tiles() == 1
+                   else "PartitionedTorchEngine")
+    check(name == want_engine, f"(n) {label}: {name}, not {want_engine}")
+    errs = [0.0]
+    for i, (g, w) in enumerate(zip(bands, want)):
+        if i in exact:
+            check(np.array_equal(g, w, equal_nan=True),
+                  f"(n) {label}: band {i} differs from the reference")
+        else:
+            errs.append(close(g, w, f"(n) {label} band {i} vs reference",
+                              atol=rtol, rtol=rtol))
+    cfg = pcr.PipelineConfig(grid=gc, reductions=specs,
+                             exec_mode=pcr.ExecutionMode.GPU,
+                             gpu_require_strict=True, **mesh)
+    p = pcr.Pipeline.create(cfg)
+    staged_ = p.stage(c)
+    torch.cuda.synchronize()
+    kerr, kinds = shard_kernels(torch, p._engine, staged_, label, rtol)
+    check(set(need) <= kinds, f"(n) {label}: no {need} chunk in the shards "
+                              f"checked")
+    del p, staged_
+    cells = f"(dp, sp)=({dp}, {sp}) " if dp else ""
+    print(f"(n) {label}: {name} {cells}shards={nshards} launches={launches} "
+          f"best of {reps} {'staged' if staged else 'host-sourced'}: "
+          f"{fmt(best_walls(walls[:reps]))} resident: {fmt(resident[0])} "
+          f"max_abs_err={max(errs)!r} kernel_vs_plain_err={kerr!r} "
+          f"peak_device_bytes={peak} resident "
+          f"{resident[1]}")
+    return launches
+
+
+def shard_kernels(torch, eng, staged, label, rtol):
+    """(n): each kernel of the middle and last shards' staged chunks
+    against its plain version on a fresh shard state, reruns bit-identical,
+    as band_kernels does for bands: a shard is a row-offset view whose
+    first row need not start a tile row, and windows whose home lies in
+    another shard stage dead there. A Partitioned engine stages
+    [(shard, chunks)], a Sharded one _MeshSteps whose cells[s][d] are
+    chunk lists (run by eng.cells[d][s]). Returns (the largest
+    difference, the kinds checked)."""
+    shards = sorted({eng.nshards // 2, eng.nshards - 1})
+    err, nsub, kinds = 0.0, 0, set()
+    for i, steps in enumerate(staged.per_spec):
+        if not isinstance(steps, list):
+            continue
+        info = eng.plans[i][1]
+        work = []
+        for step in steps:
+            if isinstance(step, tuple):
+                s, chunks = step
+                if s in shards:
+                    work += [(eng.engines[s], ch) for ch in chunks]
+                continue
+            for s in shards:
+                for d, chunks in enumerate(step.cells[s]):
+                    work += [(eng.cells[d][s], ch) for ch in chunks]
+        for view, chunk in work:
+            if chunk.kind in ("scatter", "fields"):
+                continue
+            kern, plain, kw = view.splat_fns(chunk)
+            shape = view._state_shape(True)
+            pr, bids = chunk.params, chunk.bids
+            fresh = lambda: [torch.zeros(shape, device=view.device)
+                             for _ in range(info.state_floats)]
+            got, ref, again = fresh(), fresh(), fresh()
+            kern(got, pr, bids, **kw)
+            plain(ref, pr, bids, **kw)
+            kern(again, pr, bids, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                      for x, y in zip(got, again)),
+                  f"(n) {label}: a shard's kernel reruns are not "
+                  f"bit-identical")
+            err = max([err] + [close(g.cpu().numpy(), r.cpu().numpy(),
+                                     f"(n) {label} shard {chunk.kind} "
+                                     f"kernel vs plain", rtol, rtol)
+                               for g, r in zip(got, ref)])
+            nsub += pr.shape[0]
+            kinds.add(chunk.kind)
+    check(nsub > 0, f"(n) {label}: no staged chunk in the shards checked")
+    print(f"(n) {label}: shards {shards} {sorted(kinds)} kernel vs plain "
+          f"nsub={nsub} rtol={rtol:.3g} max_abs_err={err!r} "
+          f"reruns_bit_identical=True")
+    return err, kinds
+
+
+def border_cloud(pcr, n, size, borders, r, seed):
+    """n points whose rows lie within r of one of the `borders` rows."""
+    rng = np.random.default_rng(seed)
+    c = pcr.PointCloud.create(n)
+    c.set_x_array(rng.uniform(0.0, size, n))
+    rows = rng.choice(borders, n) + rng.uniform(-r, r, n)
+    c.set_y_array(size - rows)
+    c.add_channel("value", pcr.DataType.Float32)
+    c.set_channel_array_f32("value",
+                            rng.uniform(0, 100.0, n).astype(np.float32))
+    return c
+
+
+def library_steps(torch, pcr, gc, c, label):
+    """(n) row 4: parallel/sharding.py's four steps over a (2, 2) mesh of
+    the one card, each run twice (bit-identical), against the resident
+    pipeline's state of the same points; the rotated step against the
+    oracle's, whose algebra it shares (its difference from the resident
+    K5's completed square is printed)."""
+    from pcr_tpu_torch.engine import routing
+    from pcr_tpu_torch.parallel import sharding as sh
+    RT = pcr.ReductionType
+    mesh = sh.make_mesh(["cuda:0"] * 4, dp=2, sp=2)
+    H, W = gc.height, gc.width
+    x, y = c.x_array(), c.y_array()
+    values = c.channel_array_f32("value")
+    col, row, valid = routing.assign(gc, x, y)
+    n = c.count()
+    block = 2048
+
+    def pad(a, fill):
+        L = -(-len(a) // (2 * block)) * 2 * block
+        return np.concatenate([a, np.full(L - len(a), fill, a.dtype)])
+
+    def state(spec, cloud, mode=pcr.ExecutionMode.GPU):
+        p, _, _ = run_pipeline(pcr, gc, [spec], cloud, mode)
+        return (p._engine.fetch_state(0) if p._engine is not None
+                else p._host_state[0])
+
+    def gspec(**glyph):
+        sp_ = pcr.gaussian_splat_spec("value", **glyph)
+        sp_.type = RT.Average
+        return sp_
+
+    avg = pcr.ReductionSpec(value_channel="value", type=RT.Average)
+    s4 = gspec(default_sigma=4.0)
+    rot = gspec(default_sigma_x=2.0, default_sigma_y=0.8,
+                default_rotation=0.6)
+    hl16 = lspec(pcr, RT.Average, default_half_length=16.0)
+    n_rot = 200_000
+    c_rot = pcr.PointCloud.create(n_rot)
+    c_rot.set_x_array(x[:n_rot])
+    c_rot.set_y_array(y[:n_rot])
+    c_rot.add_channel("value", pcr.DataType.Float32)
+    c_rot.set_channel_array_f32("value", values[:n_rot])
+    gp = routing.gaussian_params(s4.glyph, gc, x, y, None, None, None)
+    gr = routing.gaussian_params(rot.glyph, gc, x[:n_rot], y[:n_rot], None,
+                                 None, None)
+    lp = routing.line_params(hl16.glyph, gc, x, y, None, None)
+    rects = routing.line_rects(lp, gc, valid, col, row)
+    cases = (
+        ("point Average 1M", avg, c, sh.sharded_point_step, (), {},
+         (row, col, valid, values, np.ones(n, np.float32),
+          np.zeros(n, np.float32)), TOL),
+        ("Gaussian sigma 4 Average 1M", s4, c, sh.sharded_gaussian_step, (),
+         dict(block=block),
+         tuple(pad(a, f) for a, f in (
+             (gp.icx, 0), (gp.icy, 0), (gp.sub_cx, 0.0), (gp.sub_cy, 0.0),
+             (gp.sx, 1.0), (gp.sy, 1.0), (gp.r, -1), (valid, False),
+             (values, 0.0))), gauss_rtol(n, 1000, 12)),
+        ("rotated 2x0.8 Average 200k", rot, c_rot,
+         sh.sharded_gaussian_rotated_step, (int(gr.r.max()),), {},
+         (gr.icx, gr.icy, gr.sub_cx, gr.sub_cy, gr.sx, gr.sy, gr.cos_rot,
+          gr.sin_rot, gr.r, valid[:n_rot], values[:n_rot]),
+         gauss_rtol(n_rot, 1000, 6)),
+        ("Line hl 16 dir 0 Average 1M", hl16, c, sh.sharded_line_step, (),
+         dict(block=block),
+         tuple(pad(a, f) for a, f in (
+             (rects.ax, 1), (rects.bx, 0), (rects.ay, 1), (rects.by, 0),
+             (np.ones(len(rects.ax), bool), False),
+             (values[rects.owner], 0.0))),
+         TOL))
+    for name, spec, cloud_, build, args, kw, inputs, rtol in cases:
+        info = pcr.get_reduction_info(spec.type)
+        want = state(spec, cloud_)
+        ref = "resident"
+        if build is sh.sharded_gaussian_rotated_step:
+            resident = want
+            want, ref = state(spec, cloud_, pcr.ExecutionMode.CPU), "oracle"
+        outs, walls = [], []
+        for _ in range(2):
+            step = build(info, H, W, mesh, *args, **kw)
+            states = sh.replicate_state(mesh, info.init_state((H, W)), H, W)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states = step(states, *sh.shard_points(mesh, *inputs))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            outs.append([g.numpy() for g in sh.gather_state(states)])
+        check(all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                  for a, b in zip(*outs)), f"(n) {label} {name}: a rerun's "
+                                           f"bits differ")
+        errs = [close(g, w, f"(n) {label} {name} field {f} vs {ref}",
+                      atol=rtol, rtol=rtol)
+                for f, (g, w) in enumerate(zip(outs[0], want))]
+        extra = ""
+        if ref == "oracle":
+            extra = (" max_abs_diff_vs_resident=" + repr(max(
+                float(np.abs(g - w).max())
+                for g, w in zip(outs[0], resident))))
+        print(f"(n) {label} {name}: walls {[round(w, 4) for w in walls]}s "
+              f"max_abs_err={max(errs)!r} vs {ref} tolerance={rtol!r}"
+              f"{extra} reruns bit-identical")
+
+
+def phase_n(torch, pcr, kernels, gk, lk, tmp, e_ref, d_ref):
+    """(n) meshes on the one card: ShardedTorchEngine on a one-tile grid,
+    PartitionedTorchEngine on tiled ones, against the resident engine, the
+    oracle and each other; the library steps. Returns the launches of the
+    mesh paths by kernel."""
+    RT = pcr.ReductionType
+    fns = {"point": kernels.sorted_splat_point,
+           "gauss": gk.sorted_splat_gauss, "rot": gk.rot_splat_dense,
+           "rotp": gk.rot_splat_packed, "rect": lk.rect_splat}
+    total = dict.fromkeys(fns, 0)
+
+    def row(label, gc, specs, c, mesh, want, resident, need, **kw):
+        for k, v in mesh_row(torch, pcr, fns, label, gc, specs, c, mesh,
+                             want, resident, need, **kw).items():
+            total[k] += v
+
+    four = ["cuda:0"] * 4
+    avg = pcr.ReductionSpec(value_channel="value", type=RT.Average)
+
+    # 1. one tile: ShardedTorchEngine
+    gc = grid(pcr, 4096, 32610)
+    c = cloud(pcr, 20_000_000, 0.0, 4096.0, 100.0, SEED + 20, ts=True)
+    specs = [avg, pcr.ReductionSpec(value_channel="value", type=RT.Max),
+             pcr.ReductionSpec(value_channel="value", type=RT.MostRecent,
+                               timestamp_channel="ts")]
+    want, *res = resident_ref(torch, pcr, gc, specs, c)
+    for dp, sp in ((2, 2), (1, 4)):
+        row("4096x4096 one tile 20M Average+Max+MostRecent", gc, specs, c,
+            dict(mesh_devices=four, mesh_dp=dp, mesh_sp=sp), want, res,
+            ("point",), exact=(1, 2))
+    del c
+    c5 = cloud(pcr, 5_000_000, 0.0, 4096.0, 100.0, SEED + 21)
+    g4 = pcr.gaussian_splat_spec("value", default_sigma=4.0)
+    g4.type = RT.Average
+    for label, spec, need, rtol in (
+            ("4096x4096 one tile 5M Gaussian sigma 4 Average", g4, "gauss",
+             gauss_rtol(5_000_000, 4096, 12)),
+            ("4096x4096 one tile 5M Line hl 16 Average",
+             lspec(pcr, RT.Average, default_half_length=16.0), "rect", TOL)):
+        want, *res = resident_ref(torch, pcr, gc, [spec], c5)
+        row(label, gc, [spec], c5, dict(mesh_devices=four, mesh_sp=4), want,
+            res, (need,), rtol=rtol)
+    del c5
+
+    # 2. several tiles: PartitionedTorchEngine. (e)'s grid, cloud and band
+    gc, c20, e_band, _ = e_ref
+    mesh = dict(mesh_devices=four)
+    state_dir = os.path.join(tmp, "n_state")
+    tif = os.path.join(tmp, "n.tif")
+    for f in fns.values():
+        f.launches = 0
+    p, (band,), w = run_pipeline(pcr, gc, [avg], c20, pcr.ExecutionMode.GPU,
+                                 state_dir=state_dir, output_path=tif,
+                                 mesh=mesh)
+    check(fns["point"].launches >= 1, "(n) 8192x8192: K1 never launched")
+    total["point"] += fns["point"].launches
+    err = close(band, e_band, "(n) 8192x8192 20M host vs resident (e)")
+    check(np.array_equal(pcr.read_geotiff_band(tif, 0), band,
+                         equal_nan=True), "(n) 8192x8192: GeoTIFF != band")
+    resumed = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=[avg], exec_mode=pcr.ExecutionMode.GPU,
+        gpu_require_strict=True, state_dir=state_dir, **mesh))
+    check(all(np.array_equal(a, b) for a, b in zip(
+        resumed._engine.fetch_state(0), p._engine.fetch_state(0))),
+        "(n) 8192x8192: resume from state_dir does not reproduce the state")
+    print(f"(n) 8192x8192 20M Average host-sourced with state_dir + GeoTIFF "
+          f"+ resume: {type(p._engine).__name__} shards={p._engine.nshards} "
+          f"K1 launches={fns['point'].launches} {fmt(w)} "
+          f"max_abs_err={err!r}")
+    del p, resumed, band
+    _, *res = resident_ref(torch, pcr, gc, [avg], c20)
+    row("8192x8192 20M Average vs (e)'s resident band", gc, [avg], c20,
+        mesh, [e_band], res, ("point",))
+    del c20, e_band
+
+    gc = grid(pcr, 4096, 32610, tile=512)
+    for label, glyph, need, r in (
+            ("rotated 8x3", dict(default_sigma_x=8.0, default_sigma_y=3.0,
+                                 default_rotation=0.6), "rot", 24),
+            ("rotated 4x1.5", dict(default_sigma_x=4.0, default_sigma_y=1.5,
+                                   default_rotation=0.6), "rotp", 12)):
+        spec = pcr.gaussian_splat_spec("value", **glyph)
+        spec.type = RT.Average
+        c = border_cloud(pcr, 1_000_000, 4096.0, [1024, 2048, 3072], r,
+                         SEED + 22)
+        want, *res = resident_ref(torch, pcr, gc, [spec], c)
+        row(f"4096x4096 512-cell tiles 1M {label} Average, centres within "
+            f"{r} rows of the shard borders", gc, [spec], c, mesh, want, res,
+            (need,), rtol=gauss_rtol(1_000_000, np.sqrt(3 * 2 * r * 4096.0),
+                                     r))
+
+    # 3. against the oracle: (d)'s quickstart, host-sourced
+    gc, c1, specs, oracle, _ = d_ref
+    _, *res = resident_ref(torch, pcr, gc, specs, c1, staged=False)
+    row("quickstart 1000x1000 1M host-sourced Average+Max+Min+MostRecent "
+        "vs (d)'s oracle bands", gc, specs, c1,
+        dict(mesh_devices=four, mesh_dp=2, mesh_sp=2), oracle, res,
+        ("point",), exact=(1, 2, 3), staged=False)
+
+    # 4. the library steps
+    library_steps(torch, pcr, gc, c1, "library steps 1000x1000 (dp, sp)="
+                                      "(2, 2)")
+    return total
+
+
 def k1_layout(pcr, torch, size, n, rtype, seed):
     """A TorchEngine on the card and its K1 layout of n uniform points
     (1% of them invalid) on a size x size grid."""
@@ -1258,6 +1692,7 @@ def main() -> int:
                 if ("registers" in line or "spill" in line
                         or "entry function" in line):
                     print("(a) ptxas:", line.strip())
+    card_state("after (a)")
 
     # (b) K1 against its plain version
     errs = []
@@ -1271,6 +1706,7 @@ def main() -> int:
         errs.append(k1["err"])
         del eng, staged
     # the row's numbers are the main path's shape: 160x160 (the last)
+    card_state("after (b)")
 
     tmp = tempfile.mkdtemp(prefix="pcr_chip_smoke_")
     try:
@@ -1330,6 +1766,7 @@ def main() -> int:
               f"{fmt(w)} max_abs_err(Average)={err_d!r} oracle: {fmt(ow)}")
         hybrid_vs_oracle(pcr, gc, specs, c1, oracle, "(d) quickstart",
                          [kernels.sorted_splat_point], exact=(1, 2, 3))
+        d_ref = (gc, c1, specs, oracle, w)    # (n) runs it on a mesh
         del c1
 
         # (e) DC-LiDAR scale
@@ -1347,7 +1784,8 @@ def main() -> int:
         print(f"(e) DC-LiDAR 8192x8192 20M Average staged: {fmt(w)} "
               f"max_abs_err={err_e!r} peak_device_bytes="
               f"{torch.cuda.max_memory_allocated()} oracle: {fmt(ow)}")
-        del c20
+        e_ref = (gc, c20, bands[0], w)      # (n) runs it on a mesh
+        del c20, oracle
 
         # (f) K2, K4, K5 against their plain versions
         s1 = dict(default_sigma=1.0)
@@ -1378,6 +1816,7 @@ def main() -> int:
         # the glyph suite's headline shapes: sigma 4 (K2), the rotated rows
         kstat = {k: (max(r[0] for r in v), v[-1][1], v[-1][2], v[-1][3])
                  for k, v in fres.items()}
+        card_state("after (f)")
 
         # (g) Gaussian pipelines against the oracle
         gc = grid(pcr, 1000, 3857)
@@ -1447,6 +1886,7 @@ def main() -> int:
         # the glyph suite's headline shape: hl 16, direction 0, two fields
         k3_err = max(v[0] for r in hres.values() for v in r.values())
         _, k3_ms, k3_plain_ms, k3_bound = hres["hl 16 dir 0 5M"][2]
+        card_state("after (h)")
 
         # (i) Line pipelines against the oracle
         WA = RT.WeightedAverage
@@ -1540,6 +1980,8 @@ def main() -> int:
               f"of {chain} adds; split={k6.split_of(nsub, block)}) "
               f"(turns: {turns})")
 
+        card_state("after (j)")
+
         # (k) host-sourced ingest: the card lays the chunks out itself
         phase_k(torch, pcr, kernels, gauss_kernels, lk)
 
@@ -1552,6 +1994,18 @@ def main() -> int:
         l_gauss += l_out["gauss"]
         l_rot["rot"] += l_out["rot"]
         l_rect += l_out["rect"]
+
+        # (n) meshes, several shards on the one card
+        t_n = time.perf_counter()
+        n_out = phase_n(torch, pcr, kernels, gauss_kernels, lk, tmp, e_ref,
+                        d_ref)
+        del e_ref, d_ref
+        print(f"(n) took {time.perf_counter() - t_n:.1f}s")
+        launches += n_out["point"]
+        l_gauss += n_out["gauss"]
+        l_rot["rot"] += n_out["rot"]
+        l_rotp["rotp"] += n_out["rotp"]
+        l_rect += n_out["rect"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1579,6 +2033,7 @@ def main() -> int:
           f"{sum(ORACLE_S):.1f}s of them the CPU oracle's ingest loops on "
           f"the host")
     print(f"card: {card}")
+    card_state("at the end")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"pcr_tpu_torch/csrc/{src}",
         "replaces": rep, "launches": n, "max_abs_err": err, "ms": ms,

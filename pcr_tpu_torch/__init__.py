@@ -41,12 +41,19 @@ raster comparison (`testing`), phase timing with a torch.profiler trace
 and raster rendering (`utils`), and the rasterio bridge
 (`io.rasterio_bridge`).
 
-Refused on the device path (NotImplemented; the CPU backend runs them):
-device meshes. Accepted and ignored, for compatibility:
-`gpu_pool_size_bytes` and `use_cuda_streams`.
+Multi-device meshes (`mesh_devices`, `mesh_dp`, `mesh_sp`) split the
+device state into row shards over a list of torch devices, one process
+driving them all: ShardedTorchEngine on a one-tile grid over a (dp, sp)
+mesh, PartitionedTorchEngine on a tiled one, each shard a TorchEngine on
+the same kernels (parallel/engine.py); a list may name one card several
+times. The mesh library (make_mesh, the sharded steps) is
+`parallel.sharding`.
+
+Accepted and ignored, for compatibility: `gpu_pool_size_bytes` and
+`use_cuda_streams`.
 """
 
-__version__ = "0.7.0"   # the port's own version, not pcr_tpu's
+__version__ = "0.8.0"   # the port's own version, not pcr_tpu's
 
 from .core.device import (
     cuda_device_available,

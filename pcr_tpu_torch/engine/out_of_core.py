@@ -73,7 +73,8 @@ from .kernels import TH
 from .tiling import padded_width
 from .torch_backend import TorchEngine
 
-__all__ = ["OutOfCoreTorchEngine", "pick_band_rows"]
+__all__ = ["OutOfCoreTorchEngine", "pick_band_rows", "take_optional",
+           "take_points"]
 
 
 def pick_band_rows(cfg: GridConfig, plans, budget: int) -> int:
@@ -98,7 +99,7 @@ def pick_band_rows(cfg: GridConfig, plans, budget: int) -> int:
     return max(rows, quantum)
 
 
-def _take(rec, sel, dy: int):
+def take_points(rec, sel, dy: int):
     """A routing parameter record (GaussianParams, LineParams) with every
     per-point array cut to `sel` and its row fields moved up by `dy`."""
     shift = {"icy", "iy0", "iy1"}
@@ -109,7 +110,8 @@ def _take(rec, sel, dy: int):
         if isinstance(getattr(rec, f.name), np.ndarray)})
 
 
-def _opt(a, sel):
+def take_optional(a, sel):
+    """An optional per-point array (weights, timestamps) cut to `sel`."""
     return None if a is None else np.asarray(a)[sel]
 
 
@@ -271,7 +273,8 @@ class OutOfCoreTorchEngine:
         values = np.asarray(values)
         return [(b, self._views[b].prepare_point(
                     spec_idx, None, np.ones(int(sel.sum()), bool),
-                    values[sel], _opt(weights, sel), _opt(timestamps, sel),
+                    values[sel], take_optional(weights, sel),
+                    take_optional(timestamps, sel),
                     wire_cheap=wire_cheap, col=col[sel].astype(np.int32),
                     row=(row[sel] - b * self.band_rows).astype(np.int32)))
                 for b, sel in self._band_selections(valid, row, row, row)]
@@ -303,7 +306,7 @@ class OutOfCoreTorchEngine:
         valid = np.asarray(valid, bool)
         values = np.asarray(values)
         return [(b, self._views[b].prepare_gaussian(
-                    spec_idx, _take(gp, sel, b * self.band_rows),
+                    spec_idx, take_points(gp, sel, b * self.band_rows),
                     np.ones(int(sel.sum()), bool), values[sel],
                     wire_cheap=wire_cheap))
                 for b, sel in self._band_selections(
@@ -318,7 +321,7 @@ class OutOfCoreTorchEngine:
                 valid, row, np.minimum(lp.iy0, lp.iy1),
                 np.maximum(lp.iy0, lp.iy1)):
             off = b * self.band_rows
-            llp = _take(lp, sel, off)
+            llp = take_points(lp, sel, off)
             ddx = np.abs(llp.ix1.astype(np.int64) - llp.ix0)
             ddy = np.abs(llp.iy1.astype(np.int64) - llp.iy0)
             llp.max_steps = int((2 * (ddx + ddy) + 2).max())

@@ -46,9 +46,11 @@ Grids whose state exceeds `gpu_memory_budget` accumulate in host-resident
 row bands through one band-shaped engine (engine/out_of_core.py,
 OutOfCoreTorchEngine), whenever out_of_core.pick_band_rows gives a band.
 Custom reductions run on the device path as on the CPU (Point glyph only;
-engine/torch_backend.py). Not carried over, refused with
-StatusCode.NotImplemented on the device path: device meshes (pcr_tpu's
-ShardedTpuEngine and PartitionedTpuEngine). The CPU backend runs them.
+engine/torch_backend.py). With `mesh_devices` / `mesh_dp` / `mesh_sp` the
+state is split into row shards over a list of torch devices, one process
+driving them all (parallel/engine.py: ShardedTorchEngine for a one-tile
+grid, PartitionedTorchEngine for a tiled one), each shard on the same
+kernels; a `gpu_memory_budget` beside a mesh is an InvalidArgument.
 
 Differences from the reference, by design (as in pcr_tpu):
   * Multi-reduction ingest shares one world→cell assignment per cloud
@@ -96,7 +98,7 @@ from . import routing
 from .filter import FilterSpec, evaluate_filter_mask
 from .glyph import GLYPH_SUPPORTED_REDUCTIONS, GlyphSpec, GlyphType
 from .tiling import INGEST_CHUNK_POINTS, chunk_ranges
-from .torch_backend import TorchEngine, _not_ported
+from .torch_backend import TorchEngine
 
 __all__ = ["ExecutionMode", "ReductionSpec", "PipelineConfig",
            "ProgressInfo", "StagedCloud", "Pipeline"]
@@ -163,11 +165,13 @@ class PipelineConfig:
     hybrid_cpu_threads: int = 0
     # ^ Hybrid mode's worker threads (0 or 1 = prepare and commit in turn)
 
-    # Multi-device scale-out (pcr_tpu's mesh engines): refused on the
-    # device path (not ported).
-    mesh_devices: object = None
-    mesh_dp: int = 0
-    mesh_sp: int = 0
+    # Multi-device scale-out (pcr_tpu's mesh engines, parallel/engine.py):
+    # any of these shards the device state by rows over a list of torch
+    # devices, one process driving them all; a device may be named more
+    # than once (several shards on one card).
+    mesh_devices: object = None   # None | int (count) | list of devices
+    mesh_dp: int = 0              # data-parallel axis size (0 = auto)
+    mesh_sp: int = 0              # spatial (grid-row) axis size (0 = auto)
 
     # State persistence
     state_dir: str = ""
@@ -217,8 +221,9 @@ class Pipeline:
                                           #   -> CollectStream (spill-backed)
         self._tiled = False
         self._spill_root = None           # tiled without state_dir: temp dir
-        self._engine = None               # torch mode: TorchEngine, or
-                                          #   OutOfCoreTorchEngine
+        self._engine = None               # torch mode: TorchEngine,
+                                          #   OutOfCoreTorchEngine, or a
+                                          #   mesh engine (parallel/)
         self._result: Grid | None = None
         self._finalized = False
         self._cancelled = False
@@ -335,10 +340,8 @@ class Pipeline:
         self._tiled = False
         c = self.config
         if c.mesh_devices is not None or c.mesh_dp > 1 or c.mesh_sp > 1:
-            # once meshes arrive, a budget beside one is an InvalidArgument
-            # (pcr_tpu/engine/pipeline.py:304-316): the state is already
-            # sharded 1/N per device and bands do not fit shard row views
-            raise _not_ported("multi-device meshes")
+            self._engine = self._mesh_engine()
+            return
         device = device_override() or torch.device(
             "cuda", min(c.cuda_device_id, cuda_device_count() - 1))
         # Out-of-core: when the state exceeds gpu_memory_budget, accumulate
@@ -352,6 +355,35 @@ class Pipeline:
                                                     device)
                 return
         self._engine = TorchEngine(cfg, self._plans, device)
+
+    def _mesh_engine(self):
+        """pcr_tpu's choice (pipeline.py:302-337): a grid of one tile takes
+        the ShardedTorchEngine over a (dp, sp) mesh, a grid of several
+        tiles the PartitionedTorchEngine with every device a row shard."""
+        c = self.config
+        if c.gpu_memory_budget:
+            # out-of-core bands are whole-grid or tile aligned and do not
+            # fit shard row views; the state is already sharded 1/N a device
+            raise PcrError(Status.error(
+                StatusCode.InvalidArgument,
+                "pipeline: gpu_memory_budget is not supported together "
+                "with a device mesh — the state is already sharded 1/N per "
+                "device; raise mesh_sp (or the device count) to shrink "
+                "per-device state, or drop the mesh to use banded "
+                "out-of-core"))
+        from ..parallel.engine import (PartitionedTorchEngine,
+                                       ShardedTorchEngine,
+                                       resolve_mesh_devices)
+        from ..parallel.sharding import available_devices
+        devs = resolve_mesh_devices(c.mesh_devices)
+        dp, sp = c.mesh_dp or None, c.mesh_sp or None
+        if devs is None:
+            devs = (available_devices(dp * sp)[: dp * sp] if dp and sp
+                    else available_devices())
+        if c.grid.total_tiles() > 1:
+            return PartitionedTorchEngine(c.grid, self._plans, devs)
+        return ShardedTorchEngine(c.grid, self._plans, devices=devs, dp=dp,
+                                  sp=sp)
 
     # -- state persistence ------------------------------------------------------
 

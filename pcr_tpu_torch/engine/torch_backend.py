@@ -70,7 +70,7 @@ import torch
 
 from .. import native
 from ..core.grid_config import GridConfig
-from ..core.types import PcrError, ReductionType, Status, StatusCode
+from ..core.types import ReductionType
 from ..ops.reduction import FLT_MAX, finalize_fields, gauss_state_flush
 from . import device_prep, gauss_kernels, kernels, line_kernels, routing
 from .gauss_kernels import (GaussGeom, rot_splat_dense, rot_splat_packed,
@@ -84,9 +84,25 @@ from .tiling import (ROT_COL_TILE, ROT_ROW_BLOCK, ROTP_RMAX, ROTP_ROW_BLOCK,
                      padded_width, rect_col_tile, rot_quadratic_segs)
 
 __all__ = ["StagedChunk", "TorchEngine", "halo_copies", "layout_tiles",
-           "layout_tiles_numpy"]
+           "layout_tiles_numpy", "shard_view"]
 
 ROTP_COL_TILE = 128     # K5's tile width (the TPU kernel's WT)
+
+
+def shard_view(cfg: GridConfig, row_offset: int, rows: int,
+               global_height: int | None = None) -> GridConfig:
+    """The GridConfig of rows [row_offset, row_offset + rows) of a grid of
+    `global_height` rows (by default cfg's own), in those rows' own frame,
+    carrying the whole grid's (row_offset, global_height, the tiles):
+    routing, the home-tile clips and the centre offsets read it. The one
+    maker of row-offset views: a mesh's row shards (parallel/engine.py)
+    and an out-of-core band (TorchEngine.band_view). A one-tile grid stays
+    one tile, so a view clips footprints to its own rows only."""
+    view = dataclasses.replace(cfg, height=rows)
+    view.row_offset = row_offset
+    view.global_height = (cfg.height if global_height is None
+                          else global_height)
+    return view
 
 
 @dataclass
@@ -315,11 +331,6 @@ def _argmax_ts_update(states, cells, values, ts, C: int) -> None:
     cur_t.copy_(torch.where(won, ts[w], cur_t))
 
 
-def _not_ported(what: str) -> PcrError:
-    return PcrError(Status.error(StatusCode.NotImplemented,
-                                 f"pcr_tpu_torch: {what} not yet ported"))
-
-
 class TorchEngine:
     """Device-resident accumulation for one Pipeline run, on one
     torch.device. Per ReductionSpec it owns a list of float32 state
@@ -327,10 +338,12 @@ class TorchEngine:
     otherwise."""
 
     def __init__(self, cfg: GridConfig, plans, device: torch.device,
-                 state: bool = True):
+                 state: bool = True, arena: _Arena | None = None):
         """`state=False` leaves the state tensors unallocated until the
-        first load_state (an out-of-core band engine loads every band it
-        commits to)."""
+        first load_state or reset_state (an out-of-core band engine loads
+        every band it commits to). `arena` shares the pinned buffers and
+        copy stream of another engine on the same device (the row shards
+        of a mesh); by default the engine has its own."""
         self.cfg = cfg
         self.plans = plans
         self.device = torch.device(device)
@@ -344,7 +357,7 @@ class TorchEngine:
         self.W_state = padded_width(self.W)
         self.ncb = self.W_state // self.WT
         self.geom = GaussGeom.of(cfg)
-        self._arena = _Arena(self.device)
+        self._arena = arena or _Arena(self.device)
         self._grid_shaped = []
         self._states = []
         for spec, info in plans:
@@ -374,9 +387,7 @@ class TorchEngine:
         offsets (tiling.centre_offset) read, so every home tile and every
         centre is the full grid's."""
         view = copy.copy(self)
-        view.cfg = dataclasses.replace(self.cfg)
-        view.cfg.row_offset, view.cfg.global_height = (row_offset,
-                                                       global_height)
+        view.cfg = shard_view(self.cfg, row_offset, self.H, global_height)
         view.geom = GaussGeom.of(view.cfg)
         return view
 
@@ -391,16 +402,28 @@ class TorchEngine:
         aliases the caller's array."""
         _, info = self.plans[spec_idx]
         grid_shaped = self._grid_shaped[spec_idx]
-        if self._states[spec_idx] is None:
-            self._states[spec_idx] = [
-                torch.empty(self._state_shape(grid_shaped),
-                            dtype=torch.float32, device=self.device)
-                for _ in range(info.state_floats)]
-        for fi, (st, f) in enumerate(zip(self._states[spec_idx], fields_hw)):
+        self.reset_state(spec_idx, info.identity)
+        for st, f in zip(self._states[spec_idx], fields_hw):
             src = torch.from_numpy(np.ascontiguousarray(f, dtype=np.float32))
-            st.fill_(float(info.identity[fi]))
             dst = st if grid_shaped else st.view(self.H, self.W)
             dst[: src.shape[0], : self.W].copy_(src)
+
+    def reset_state(self, spec_idx: int, fill) -> None:
+        """Set every cell of the spec's state fields to `fill` (one value
+        a field), allocating them first where they are not yet (a mesh
+        cell's delta starts each step from the merge's identity)."""
+        if self._states[spec_idx] is None:
+            self._states[spec_idx] = [
+                torch.empty(self._state_shape(self._grid_shaped[spec_idx]),
+                            dtype=torch.float32, device=self.device)
+                for _ in fill]
+        for st, v in zip(self._states[spec_idx], fill):
+            st.fill_(float(v))
+
+    def states(self, spec_idx: int):
+        """The spec's state tensors themselves, (H_pad, W_state) grid-shaped
+        or flat (C,): what a mesh merge folds in place."""
+        return self._states[spec_idx]
 
     def _planes(self, spec_idx: int):
         """(H, W) views of the state fields."""

@@ -56,7 +56,8 @@ def test_the_sources_are_found():
     for new in ("engine/out_of_core.py", "engine/grid_merge.py",
                 "testing/generators.py", "testing/compare.py",
                 "utils/profiling.py", "utils/visualization.py",
-                "io/rasterio_bridge.py"):
+                "io/rasterio_bridge.py", "parallel/sharding.py",
+                "parallel/engine.py"):
         assert f"pcr_tpu_torch/{new}" in SOURCES
     assert len(SOURCES) > 30
 

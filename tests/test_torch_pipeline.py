@@ -304,18 +304,6 @@ def test_host_ingest_takes_the_k1_layout():
     assert torch.equal(a.params, b.params) and torch.equal(a.bids, b.bids)
 
 
-@pytest.mark.parametrize("case", ["mesh"])
-def test_unported_features_refuse_on_the_device(case):
-    specs, cfg = [spec(RT.Average)], {"mesh_sp": 2}
-    with pytest.raises(port.PcrError, match="not yet ported") as e:
-        make(port, GPU, specs, **cfg)
-    assert e.value.status.code == port.StatusCode.NotImplemented
-    # the CPU backend runs it as pcr_tpu does
-    _, got = run(port, CPU, specs, [cloud(seed=9)], **cfg)
-    _, want = run(ref, CPU, specs, [cloud(seed=9)], **cfg)
-    assert np.array_equal(got[0], want[0], equal_nan=True)
-
-
 @pytest.mark.parametrize("case", ["strict", "fallback", "no_fallback",
                                   "auto", "default"])
 def test_fallback_ladder_without_a_card(case, monkeypatch):
