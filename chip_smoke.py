@@ -134,7 +134,34 @@ Phases:
       device memory of one run beside the resident engine's, and the
       row's kernel against its plain version on the middle and last
       shards' staged chunks (K2 and K4 at gauss_rtol, K1, K3 and K5 at the
-      row's tolerance), reruns bit-identical.
+      row's tolerance), reruns bit-identical;
+  (o) K4 and K5 far from the origin: on an 8192x8192 grid in 512-cell
+      tiles, rotated 8 x 3 (K4, 25k points) and 4 x 1.5 (K5, 100k points)
+      Average, each cloud with centres in rows and columns [7680, 8192)
+      and the same cloud shifted into [0, 512) (points cut so the oracle's
+      loop stays short; the extent is the DC-LiDAR grid's). The pipeline
+      band against the numpy oracle: each block within 1e-5 relative to
+      the cell's sum of |terms| (positive values: the band), the exact NaN
+      footprint, and the far block's largest error at most 1.5x the near
+      block's (the kernels form the distance to the centre from the integer
+      difference, so it does not drift as rows and columns grow); then the
+      kernel against its plain version on the far block's sub-chunks
+      (gauss_rtol), reruns bit-identical;
+  (p) the user entry points (pcr_tpu_torch.examples and .scripts): the six
+      examples at their defaults on the card against the same example with
+      ExecutionMode.CPU (1e-5 per cell, exact NaN footprint; smiley_face's
+      eye cells, ~1.3e4 float32 terms of the value 3 each, card and CPU
+      alike against the exact Average 3), the multichip example's mesh on
+      [cuda:0] * 4 against the resident engine's bands; the LiDAR harness
+      at DC-LiDAR scale (--synthesize 40 --pts-per-file 500000 --extent
+      8192 --skew 0.5: 20M points, 8192x8192, Point Average) in gpu,
+      hybrid and cpu mode (gpu within 1e-5 of cpu, hybrid bit for bit
+      gpu), then --glyph gauss --sigma 3 on the first 4 files, gpu against
+      cpu at gauss_rtol of each cell's term count (cell_rtol: the hot
+      clusters pile up to ~1.5e4 terms in a cell), each mode's io_read_s /
+      ingest_s / drain_s / finalize_s / library_mpts_per_s printed; the
+      glyph patterns, scenes 01-08 in gpu and cpu mode, every raster
+      PASSing the comparator.
 The card's SM clock, temperature, power draw and active clock-limit
 reasons are printed ("card state") after the build and after each phase
 that times a kernel ((b), (f), (h), (j)), and beside the kernels line, so
@@ -144,7 +171,7 @@ on the card (an OutOfCoreTorchEngine of several bands where (l) and (m)
 set a budget, a mesh engine with every shard on the card where (n) sets
 a mesh), through its kernels: each path is driven with the launch
 counters set to 0 just before it and read just after; the kernels line
-counts the launches of the main paths and of (l), (m) and (n). Nothing of
+counts the launches of the main paths and of (l)-(p). Nothing of
 pcr_tpu or jax may be imported (checked at the end). The line before last is a JSON
 summary of the kernels, each with its bound: the larger of the bytes it
 must move (each input read once, each output written once) over 3.35 TB/s
@@ -462,6 +489,23 @@ def gauss_rtol(n, size, r):
     never below the repo's 1e-5. At sigma 16 (K ~ 2e4) it is ~9e-5."""
     k = n / (size * size) * (2 * r + 1) ** 2
     return max(TOL, 8.0 * np.sqrt(k) * 2.0 ** -24)
+
+
+def cell_rtol(gc, x, y, r):
+    """gauss_rtol cell by cell: each cell's K is the number of points whose
+    centre lies within r cells of it on both axes (an upper bound of the
+    terms a Gaussian of radius r adds there), from a box sum of the
+    centres' histogram. Where a cloud piles into hot clusters, a cell
+    can sum 1e4 terms, and two orders of them (the card's and the numpy
+    oracle's, both float32) differ by more than 1e-5."""
+    from pcr_tpu_torch.engine import routing
+    col, row, ok = routing.assign(gc, x, y)
+    H, W, k = gc.height, gc.width, 2 * r + 1
+    hist = np.bincount(row[ok].astype(np.int64) * W + col[ok],
+                       minlength=H * W).reshape(H, W)
+    cs = np.pad(hist, ((r + 1, r), (r + 1, r))).cumsum(0).cumsum(1)
+    terms = cs[k:, k:] - cs[:-k, k:] - cs[k:, :-k] + cs[:-k, :-k]
+    return np.maximum(TOL, 8.0 * np.sqrt(terms) * 2.0 ** -24), terms
 
 
 def walk_hits(torch, gk, chunk, geom, ncb):
@@ -1634,6 +1678,301 @@ def phase_n(torch, pcr, kernels, gk, lk, tmp, e_ref, d_ref):
     return total
 
 
+def far_near_cloud(pcr, n, size, block, seed):
+    """n points whose centres lie in rows and columns [size - block,
+    size), then the same n shifted by size - block cells into [0, block):
+    the same sub-cell offsets and values far from the origin and near it.
+    Values in [1, 100) (a cell's terms are then its |terms|)."""
+    rng = np.random.default_rng(seed)
+    col = rng.uniform(size - block, size, n)
+    row = rng.uniform(size - block, size, n)
+    shift = float(size - block)
+    c = pcr.PointCloud.create(2 * n)
+    c.set_x_array(np.concatenate([col, col - shift]))
+    c.set_y_array(size - np.concatenate([row, row - shift]))
+    c.add_channel("value", pcr.DataType.Float32)
+    c.set_channel_array_f32("value", np.tile(rng.uniform(1.0, 100.0, n),
+                                             2).astype(np.float32))
+    return c
+
+
+def block_errors(got, want, size, block):
+    """The largest |got - want| / |want| (positive terms: relative to the
+    cell's sum of |terms|) in the far block (rows and columns [size -
+    block, size)) and in the near one ([0, block)), after the NaN
+    footprints were found equal."""
+    check(np.array_equal(np.isnan(got), np.isnan(want)),
+          "NaN footprints differ")
+    rel = np.where(np.isnan(want), 0.0,
+                   np.abs(got - want) / np.where(np.isnan(want), 1.0,
+                                                 np.abs(want)))
+    return (float(rel[size - block:, size - block:].max()),
+            float(rel[:block, :block].max()))
+
+
+def phase_o(torch, pcr, gk, size=8192, block=512, points=(25_000, 100_000)):
+    """(o), see the module docstring (a rehearsal on the CPU shrinks the
+    grid, the blocks and the points). Returns the launches of K4 and K5."""
+    gc = grid(pcr, size, 32610, tile=block)
+    out = {}
+    for kind, label, glyph, n, fn in (
+            ("rot", "K4 rotated 8x3", dict(default_sigma_x=8.0,
+                                           default_sigma_y=3.0,
+                                           default_rotation=0.6),
+             points[0], gk.rot_splat_dense),
+            ("rotp", "K5 rotated 4x1.5", dict(default_sigma_x=4.0,
+                                              default_sigma_y=1.5,
+                                              default_rotation=0.6),
+             points[1], gk.rot_splat_packed)):
+        spec = pcr.gaussian_splat_spec("value", **glyph)
+        spec.type = pcr.ReductionType.Average
+        c = far_near_cloud(pcr, n, size, block, SEED + 50)
+        _, (oracle,), ow = run_pipeline(pcr, gc, [spec], c,
+                                        pcr.ExecutionMode.CPU)
+        fn.launches = 0
+        _, (band,), w = run_pipeline(pcr, gc, [spec], c,
+                                     pcr.ExecutionMode.GPU)
+        out[kind] = fn.launches
+        check(out[kind] >= 1, f"(o) {label}: never launched")
+        far, near = block_errors(band, oracle, size, block)
+        check(far <= TOL and near <= TOL,
+              f"(o) {label}: far {far!r} / near {near!r} over {TOL} of the "
+              f"cells' sums of |terms|")
+        check(far <= 1.5 * near, f"(o) {label}: the far block's error "
+                                  f"{far!r} is over 1.5x the near one's "
+                                  f"{near!r}")
+        # the kernel against its plain version on the far block's chunks
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=[spec], exec_mode=pcr.ExecutionMode.GPU,
+            gpu_require_strict=True))
+        eng = p._engine
+        (chunk,) = p.stage(c).per_spec[0]
+        check(chunk.kind == kind, f"(o) {label}: routed to {chunk.kind}")
+        kern, plain, kw = eng.splat_fns(chunk)
+        ncb = eng._states[0][0].shape[1] // chunk.wt
+        b = chunk.bids.long()
+        far_tiles = ((b // ncb * chunk.th >= size - block)
+                     & (b % ncb * chunk.wt >= size - block))
+        pr = chunk.params[far_tiles].contiguous()
+        bids = chunk.bids[far_tiles].contiguous()
+        shape = eng._states[0][0].shape
+        fresh = lambda: [torch.zeros(shape, device=eng.device)
+                         for _ in range(2)]
+        got, ref, again = fresh(), fresh(), fresh()
+        kern(got, pr, bids, **kw)
+        plain(ref, pr, bids, **kw)
+        kern(again, pr, bids, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in zip(got, again)),
+              f"(o) {label}: far reruns are not bit-identical")
+        rtol = gauss_rtol(n, block, int(np.ceil(3 * glyph["default_sigma_x"])))
+        kerr = max(close(g.cpu().numpy(), r.cpu().numpy(),
+                         f"(o) {label} far kernel vs plain", rtol, rtol)
+                   for g, r in zip(got, ref))
+        print(f"(o) {size}x{size} {block}-cell tiles {label} Average {2 * n} "
+              f"({n} far, {n} near): launches={out[kind]} "
+              f"max_rel_err far={far!r} near={near!r} "
+              f"far/near={far / near if near else float('inf')!r} "
+              f"far nsub={pr.shape[0]} kernel_vs_plain rtol={rtol:.3g} "
+              f"max_abs_err={kerr!r} reruns_bit_identical=True; "
+              f"{fmt(w)} oracle: {fmt(ow)}")
+        del p, eng, chunk, pr, bids, got, ref, again, c
+    return out
+
+
+def phase_p(torch, pcr, kernels, gk, lk, tmp, lidar_size=(40, 500_000,
+                                                          8192.0)):
+    """(p), see the module docstring; `lidar_size` is the harness's
+    (files, points a file, extent), which a rehearsal on the CPU shrinks.
+    Returns the launches of K1-K5."""
+    from pcr_tpu_torch.examples import (custom_reduction, glyph_splatting,
+                                        multichip, quickstart, smiley_face,
+                                        streaming_resume)
+    from pcr_tpu_torch.scripts import compare_patterns
+    from pcr_tpu_torch.scripts import generate_glyph_patterns as patterns
+    from pcr_tpu_torch.scripts import run_lidar_pipeline as lidar
+    GPU, CPU = pcr.ExecutionMode.GPU, pcr.ExecutionMode.CPU
+    fns = {"point": kernels.sorted_splat_point,
+           "gauss": gk.sorted_splat_gauss, "rot": gk.rot_splat_dense,
+           "rotp": gk.rot_splat_packed, "rect": lk.rect_splat}
+    total = dict.fromkeys(fns, 0)
+
+    def on_card(label, run, need):
+        """run() with the launch counters set to 0 just before and read
+        just after; each kernel in `need` must have launched."""
+        for f in fns.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in fns.items()}
+        for k in need:
+            check(got[k] >= 1, f"(p) {label}: {k} was never launched")
+        for k in fns:
+            total[k] += got[k]
+        return out, wall, {k: v for k, v in got.items() if v}
+
+    def oracle(run):
+        t0 = time.perf_counter()
+        out = run()
+        return out, time.perf_counter() - t0
+
+    def same(label, got, want):
+        if label != "smiley_face":
+            return max(close(g, w, f"(p) {label} {i} card vs CPU")
+                       for i, (g, w) in enumerate(zip(got, want)))
+        # The eyes' cells sum ~1.3e4 float32 terms of the value 3 each,
+        # whose Average is exactly 3: there two orders of the same terms
+        # differ by more than the bar (the CPU oracle itself reads
+        # 2.9999642), so those cells are held, card and CPU alike, to the
+        # exact value; every other cell card against CPU.
+        (g,), (w,) = got, want
+        check(np.array_equal(np.isnan(g), np.isnan(w)),
+              "(p) smiley_face: NaN footprints differ")
+        eye = w > 2.5
+        close(g[eye], np.full(int(eye.sum()), 3.0, np.float32),
+              "(p) smiley_face eyes card vs the exact 3")
+        close(w[eye], np.full(int(eye.sum()), 3.0, np.float32),
+              "(p) smiley_face eyes CPU vs the exact 3")
+        return close(g[~eye], w[~eye], "(p) smiley_face card vs CPU")
+
+    # the six examples on the card in their default mode (Auto) and with
+    # ExecutionMode.CPU, at their default sizes
+    AUTO = pcr.ExecutionMode.Auto
+    tif = lambda name: os.path.join(tmp, name)
+    for label, run, need in (
+            ("quickstart", lambda m: [quickstart.main(
+                mode=m, out=tif(f"quickstart_{m.name}.tif"))], ["point"]),
+            ("glyph_splatting", lambda m: list(glyph_splatting.main(
+                mode=m, out_dir=tmp).values()), ["rotp", "rect"]),
+            ("streaming_resume", lambda m: list(streaming_resume.main(
+                mode=m, state_dir=tif(f"resume_{m.name}"))), ["point"]),
+            ("custom_reduction", lambda m: [custom_reduction.main(mode=m)],
+             ["point"]),
+            ("smiley_face", lambda m: [smiley_face.main(
+                mode=m.name.lower(), out=tif(f"smiley_{m.name}.tif"),
+                png=tif(f"smiley_{m.name}.png"))], ["gauss", "rect"])):
+        got, w, launches = on_card(label, lambda: run(AUTO), need)
+        want, ow = oracle(lambda: run(CPU))
+        err = same(label, got, want)
+        print(f"(p) example {label}: card {w:.3f}s launches={launches} "
+              f"CPU {ow:.3f}s max_abs_err={err!r}")
+
+    # multichip: the mesh on ["cuda:0"] * 4 against the resident band
+    check(multichip.mesh_devices() == [torch.device("cuda", 0)] * 4
+          or torch.cuda.device_count() > 1, "(p) multichip: the mesh is "
+                                           "not four shards of the card")
+    (point, gauss), w, _ = on_card("multichip", multichip.main, [])
+    x, y, v = multichip.inputs(1 << 16, 256)
+    c = pcr.PointCloud.create(len(x))
+    c.set_x_array(x)
+    c.set_y_array(y)
+    c.add_channel("value", pcr.DataType.Float32)
+    c.set_channel_array_f32("value", v)
+    gspec = pcr.gaussian_splat_spec("value", **multichip.GAUSS)
+    gspec.type = pcr.ReductionType.Sum
+    avg = pcr.ReductionSpec(value_channel="value",
+                            type=pcr.ReductionType.Average)
+    (_, (mean, gband), _), rw, _ = on_card("multichip resident", lambda: (
+        run_pipeline(pcr, grid(pcr, 256, 3857), [avg, gspec], c, GPU)),
+        ["point", "gauss"])
+    occ = point[1] > 0
+    mesh_mean = np.full(point[0].shape, np.nan, np.float32)
+    mesh_mean[occ] = point[0][occ] / point[1][occ]
+    err = close(mesh_mean, mean, "(p) multichip Average vs resident")
+    m = np.isfinite(gband)
+    check(np.all(np.abs(gauss[0][~m]) <= TOL), "(p) multichip Gaussian "
+                                               "mass outside the footprint")
+    err = max(err, close(gauss[0][m], gband[m],
+                         "(p) multichip Gaussian Sum vs resident"))
+    print(f"(p) example multichip: mesh of 4 on the card {w:.3f}s, "
+          f"resident {rw:.3f}s, max_abs_err={err!r}")
+
+    # the LiDAR harness at DC-LiDAR scale
+    d = os.path.join(tmp, "lidar")
+    t0 = time.perf_counter()
+    nfiles, per_file, extent = lidar_size
+    lidar.synthesize(d, nfiles, pts_per_file=per_file, extent=extent,
+                     skew=0.5)
+    files = lidar.input_files(d)
+    bbox, npts = lidar.scan_bounds(files)
+    print(f"(p) LiDAR: synthesized {len(files)} LAS files, {npts} points in "
+          f"{time.perf_counter() - t0:.3f}s")
+    keys = ("io_read_s", "ingest_s", "drain_s", "finalize_s",
+            "library_mpts_per_s")
+    for glyph, sub, modes in (("point", files, ("gpu", "hybrid", "cpu")),
+                              ("gauss", files[:4], ("gpu", "cpu"))):
+        bb, n_sub = lidar.scan_bounds(sub)
+        gc = lidar.make_grid(bb, 1.0)
+        spec = lidar.make_spec(glyph, "z", "Average", 3.0)
+        bands = {}
+        for mode in modes:
+            def run(mode=mode):
+                return lidar.run_mode(mode, sub, gc, spec, 2_000_000,
+                                      os.path.join(tmp, f"lidar_{mode}.tif"))
+            if mode == "cpu":
+                (stats, bands[mode]), _ = oracle(run)
+            else:
+                (stats, bands[mode]), _, launches = on_card(
+                    f"LiDAR {glyph} {mode}", run,
+                    ["point" if glyph == "point" else "gauss"])
+            check(stats["points"] == n_sub, f"(p) LiDAR {mode}: "
+                                             f"{stats['points']} points")
+            print(f"(p) LiDAR {glyph} {gc.width}x{gc.height} {n_sub} points "
+                  f"{mode}: " + " ".join(f"{k}={stats[k]!r}" for k in keys)
+                  + f" wall_s={stats['wall_s']!r} coverage_pct="
+                  f"{stats['coverage_pct']!r}")
+        g, w = bands["gpu"], bands["cpu"]
+        if glyph == "point":
+            err = close(g, w, f"(p) LiDAR {glyph} gpu vs cpu")
+            extra = ""
+        else:
+            # the hot clusters pile up to ~1.5e4 terms in a cell: each
+            # cell at gauss_rtol of its own term count
+            xs, ys = zip(*((cl.x_array(), cl.y_array()) for cl in
+                           map(pcr.read_point_cloud, sub)))
+            rtol, terms = cell_rtol(gc, np.concatenate(xs),
+                                    np.concatenate(ys), 9)
+            check(np.array_equal(np.isnan(g), np.isnan(w)),
+                  "(p) LiDAR gauss: NaN footprints differ")
+            m = ~np.isnan(w)
+            diff = np.abs(g[m] - w[m])
+            check(bool((diff <= rtol[m] + rtol[m] * np.abs(w[m])).all()),
+                  "(p) LiDAR gauss gpu vs cpu: over gauss_rtol of a cell's "
+                  "terms")
+            err = float(diff.max())
+            over = diff > TOL + TOL * np.abs(w[m])
+            extra = (f" (cells over 1e-5: {int(over.sum())}, the most "
+                     f"terms in a cell {int(terms.max())}, rtol there "
+                     f"{float(rtol.max()):.3g})")
+        if "hybrid" in bands:
+            check(np.array_equal(bands["hybrid"].view(np.int32),
+                                 bands["gpu"].view(np.int32)),
+                  "(p) LiDAR hybrid band is not gpu's bit for bit")
+        print(f"(p) LiDAR {glyph}: gpu vs cpu max_abs_err={err!r}{extra}"
+              + (" hybrid bits equal gpu" if "hybrid" in bands else ""))
+    shutil.rmtree(d, ignore_errors=True)
+
+    # the glyph pattern pair
+    pat = os.path.join(tmp, "patterns")
+    _, w, launches = on_card("patterns", lambda: patterns.main(
+        ["--out", pat, "--mode", "gpu"]), ["point", "gauss", "rot", "rect"])
+    _, ow = oracle(lambda: patterns.main(["--out", pat, "--mode", "cpu"]))
+    results, missing = compare_patterns.compare_dir(pat)
+    check(not missing and len(results) == 32,
+          f"(p) patterns: {len(results)} pairs, missing {missing}")
+    failed = [n for n, (ok, _) in results.items() if not ok]
+    check(not failed, f"(p) patterns FAIL: {failed}")
+    worst = max(float(msg.split()[0].split("=")[1])
+                for _, msg in results.values())
+    print(f"(p) patterns: scenes 01-08 {len(results)} rasters PASS, "
+          f"max_diff={worst!r}; card {w:.3f}s launches={launches}, "
+          f"CPU {ow:.3f}s")
+    return total
+
+
 def k1_layout(pcr, torch, size, n, rtype, seed):
     """A TorchEngine on the card and its K1 layout of n uniform points
     (1% of them invalid) on a size x size grid."""
@@ -2006,6 +2345,23 @@ def main() -> int:
         l_rot["rot"] += n_out["rot"]
         l_rotp["rotp"] += n_out["rotp"]
         l_rect += n_out["rect"]
+
+        # (o) K4 and K5 far from the origin
+        t_o = time.perf_counter()
+        o_out = phase_o(torch, pcr, gauss_kernels)
+        print(f"(o) took {time.perf_counter() - t_o:.1f}s")
+        l_rot["rot"] += o_out["rot"]
+        l_rotp["rotp"] += o_out["rotp"]
+
+        # (p) the user entry points
+        t_p = time.perf_counter()
+        p_out = phase_p(torch, pcr, kernels, gauss_kernels, lk, tmp)
+        print(f"(p) took {time.perf_counter() - t_p:.1f}s")
+        launches += p_out["point"]
+        l_gauss += p_out["gauss"]
+        l_rot["rot"] += p_out["rot"]
+        l_rotp["rotp"] += p_out["rotp"]
+        l_rect += p_out["rect"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -49,11 +49,24 @@ the same kernels (parallel/engine.py); a list may name one card several
 times. The mesh library (make_mesh, the sharded steps) is
 `parallel.sharding`.
 
+K4 and K5 form a cell's distance to a rotated Gaussian's centre as the
+numpy oracle does, from the integer difference to the centre cell and
+its sub-cell offset (not the TPU's float32 -(ic + sub), which drifts from
+the oracle as rows and columns grow), so they hold the oracle's 1e-5 at
+any row and column.
+
+The user entry points run with `python -m`: the examples
+(`pcr_tpu_torch.examples.quickstart`, `glyph_splatting`,
+`streaming_resume`, `custom_reduction`, `smiley_face`, `multichip`) and
+the scripts (`pcr_tpu_torch.scripts.run_lidar_pipeline`, the streaming
+LiDAR harness, and `generate_glyph_patterns` + `compare_patterns`, the
+CPU <-> device pattern pair).
+
 Accepted and ignored, for compatibility: `gpu_pool_size_bytes` and
 `use_cuda_streams`.
 """
 
-__version__ = "0.8.0"   # the port's own version, not pcr_tpu's
+__version__ = "0.9.0"   # the port's own version, not pcr_tpu's
 
 from .core.device import (
     cuda_device_available,

@@ -7,32 +7,36 @@
 // (glyph_kernels.cu:145-176) in the completed-square form the host builds
 // (TpuEngine._rot_quadratic_segs), with sqrt(log2 e) folded into sC and sA2:
 //
-//   dx = ws + xoff,  dy = hs + yoff,  gq = -(dx * sA2)^2,
-//   v = (dy + dx * s) * sC,  q2n = gq - v^2,  w = exp2(q2n) where
-//   q2n >= -19.931569
+//   dx = (ws - icx) - sub_cx,  dy = (hs - icy) - sub_cy,
+//   gq = -(dx * sA2)^2,  v = (dy + dx * s) * sC,  q2n = gq - v^2,
+//   w = exp2(q2n) where q2n >= -19.931569
 //
 // (-19.931569 = -ln(1e6) log2(e): the reference's 1e-6 PRODUCT cutoff), and
-// add f0 * w to field 0 and w to field 1. This is the TPU kernel's q2n with
-// one change of order: the TPU forms v = hs * sC + (dx * s + yoff) * sC, two
-// products of the absolute row (about 1e3 on a 1000-row grid) whose
-// difference is a few cells, so each loses a rounding of the large term.
-// Here dy = hs + yoff is exact (hs is an integer beside yoff = -(icy +
-// sub_cy)), and the per-term weight error against the reference's formula
-// drops by about 1.6x (1.0e-4 vs 2.6e-4 at worst, 1.7e-5 vs 2.7e-5 in the
-// mean, sigma 4 x 1.5 at row and column ~1000, from a numpy evaluation of
-// the two orders). Every product and sum of the chain is rounded on its own
-// (__fmul_rn / __fadd_rn), as the plain version rounds it, so no contraction
-// into an FMA moves a weight across the cutoff.
+// add f0 * w to field 0 and w to field 1. The distance to the centre is the
+// reference's own (engine/cpu_backend.py: rdx = float32(dx) - sub_cx): the
+// integer difference ws - icx is exact in float32 (both below 2^24) and is
+// rounded once with the sub-cell offset. The TPU kernel instead adds the
+// cell to a plane xoff = -(icx + sub_cx) that was rounded at the cell's
+// absolute coordinate, which loses up to 6e-5 of a cell at ~1000 and 5e-4
+// at ~8000 (a weight error of 1.8e-3 relative there); and it forms v = hs *
+// sC + (dx * s + yoff) * sC, two products of the absolute row whose
+// difference is a few cells. Here dx and dy are exact to one rounding
+// whatever the row and column, and a row-offset view (local icy) gives the
+// whole grid's bits. Every product and sum of the chain is rounded on its
+// own (__fmul_rn / __fadd_rn / __fsub_rn), as the plain version rounds it,
+// so no contraction into an FMA moves a weight across the cutoff.
 //
-// K4  params (nsub, 9, kBlock) f32  [xoff | yoff | s | sC | sA2 | f0 | icx |
-//     icy | r]; the masks are the TPU kernel's, computed here: columns
+// K4  params (nsub, 9, kBlock) f32 [sub_cx | sub_cy | s | sC | sA2 | f0 |
+//     icx | icy | r]; the masks are the TPU kernel's, computed here: columns
 //     |ws - icx| <= r, ws < W and the home tile's columns; rows
 //     [icy - r, icy + r] clipped to the grid or, on a multi-tile grid, to the
 //     home tile's rows (row_offset / global_h give a row-offset view its
 //     global frame). Dead entries carry r = -1. Tiles (th, wt) = (32, 128).
-// K5  params (nsub, 10, kBlock) f32 [xoff | yoff | s | sC | sA2 | f0 | wlo |
-//     whi | rlo | rhi]; the window [wlo, whi] x [rlo, rhi] was clipped on the
-//     host (grid and home tile). Tiles (th, wt) = (16, 128).
+// K5  params (nsub, 12, kBlock) f32 [sub_cx | sub_cy | s | sC | sA2 | f0 |
+//     wlo | whi | rlo | rhi | icx | icy]; the window [wlo, whi] x [rlo, rhi]
+//     was clipped on the host (grid and home tile), so the centre cell rides
+//     in two planes of its own (48 B an entry, 40 B before). Tiles (th, wt)
+//     = (16, 128).
 //
 // The TPU's K5 packs four entries into the 32-lane quarters of its vector
 // unit (quarter-slot packing, a quad-major wire and a 3-limb bf16 selection
@@ -53,8 +57,8 @@
 // icy / r, the grid and the home tile, the divisions of the home-tile clip
 // once per entry and CTA, not once per thread; K5: the host's window as it
 // is), empty windows made unhittable; two 16-byte records of the entry's
-// coefficients; and dy = hs + yoff for the slice's 8 rows, NaN for a row
-// outside [rlo, rhi]. Each warp then tests 32 entries at a time against its
+// coefficients and centre column; and dy = (hs - icy) - sub_cy for the
+// slice's 8 rows, NaN for a row outside [rlo, rhi]. Each warp then tests 32 entries at a time against its
 // block, ballots, and walks only the hits, in entry order: four 16-byte
 // broadcast loads bring the records, each lane forms its column's half of
 // the completed square once (NaN outside [wlo, whi]), and the eight rows
@@ -69,7 +73,7 @@
 // What bounds them: instruction issue in the hit walk. A hit costs about 83
 // instructions, 8 a cell-row of 32 lanes (two adds, two multiplies, the
 // cutoff test, the exp2 and the two accumulations) and 8 exp2 of the
-// special-function unit's 16 a clock and SM; bytes do not matter (36-40 B
+// special-function unit's 16 a clock and SM; bytes do not matter (36-48 B
 // per entry, re-read from L2 by a run's slices). About half the lanes of a
 // hit lie outside the window (a 49-column window meets 2.5 blocks of 32).
 // The first version evaluated every entry over its whole tile (4096 cells
@@ -94,7 +98,7 @@ struct RotGeom {
 
 // words per staged entry: its segments, its window, three records
 constexpr int smem_bytes(bool packed) {
-  return ((packed ? 10 : 9) + 4 + 4 + 4 + 8) * kPiece * 4;
+  return ((packed ? 12 : 9) + 4 + 4 + 4 + 8) * kPiece * 4;
 }
 
 // exp2 of q2n in [kCut, 0]: one special-function instruction; exp2f's
@@ -140,9 +144,10 @@ struct ColHalf {
   float gq, dxs;
 };
 
-__device__ __forceinline__ ColHalf col_half(float ws, float xoff, float s,
+__device__ __forceinline__ ColHalf col_half(float ws, float icx,
+                                            float sub_cx, float s,
                                             float sA2) {
-  const float dx = __fadd_rn(ws, xoff);
+  const float dx = __fsub_rn(__fsub_rn(ws, icx), sub_cx);
   const float u = __fmul_rn(dx, sA2);
   return {-__fmul_rn(u, u), __fmul_rn(dx, s)};
 }
@@ -159,7 +164,8 @@ rot_splat_kernel(const float* __restrict__ params,
                  const int32_t* __restrict__ bids, int64_t nsub,
                  float* __restrict__ s0, float* __restrict__ s1, int nf,
                  RotGeom g) {
-  constexpr int kSeg = PACKED ? 10 : 9;
+  constexpr int kSeg = PACKED ? 12 : 9;
+  constexpr int kIcx = PACKED ? 10 : 6;  // the planes of the centre cell
   constexpr int kPieces = kBlock / kPiece;
   // the staged piece as it came, then what the walk reads of it
   extern __shared__ __align__(16) float smem[];
@@ -216,17 +222,22 @@ rot_splat_kernel(const float* __restrict__ params,
       win[kPiece + e] = whi;
       win[2 * kPiece + e] = rlo;
       win[3 * kPiece + e] = rhi;
-      // xoff, s, sA2, f0 | sC, wlo, whi | dy of the slice's 8 rows, NaN
-      // for a row outside [rlo, rhi]: its cells then fail the cutoff test
+      // sub_cx, s, sA2, f0 | sC, wlo, whi, icx | dy of the slice's 8
+      // rows, NaN for a row outside [rlo, rhi]: its cells then fail the
+      // cutoff test
       col_rec[e] = make_float4(ent[e], ent[2 * kPiece + e],
                                ent[4 * kPiece + e], ent[5 * kPiece + e]);
-      row_rec[e] = make_float4(ent[3 * kPiece + e], wlo, whi, 0.0f);
-      const float yoff = ent[kPiece + e];
+      row_rec[e] = make_float4(ent[3 * kPiece + e], wlo, whi,
+                               ent[kIcx * kPiece + e]);
+      const float sub_cy = ent[kPiece + e];
+      const float icy = ent[(kIcx + 1) * kPiece + e];
       float dy[kSliceRows];
 #pragma unroll
       for (int i = 0; i < kSliceRows; ++i) {
         const float hs = hs0 + static_cast<float>(i);
-        dy[i] = hs >= rlo && hs <= rhi ? __fadd_rn(hs, yoff) : nan;
+        dy[i] = hs >= rlo && hs <= rhi
+                    ? __fsub_rn(__fsub_rn(hs, icy), sub_cy)
+                    : nan;
       }
       dys[2 * e] = make_float4(dy[0], dy[1], dy[2], dy[3]);
       dys[2 * e + 1] = make_float4(dy[4], dy[5], dy[6], dy[7]);
@@ -248,7 +259,7 @@ rot_splat_kernel(const float* __restrict__ params,
         const float4 d0 = dys[2 * k], d1 = dys[2 * k + 1];
         const float dy[kSliceRows] = {d0.x, d0.y, d0.z, d0.w,
                                       d1.x, d1.y, d1.z, d1.w};
-        ColHalf ch = col_half(ws, c.x, c.y, c.z);
+        ColHalf ch = col_half(ws, r.w, c.x, c.y, c.z);
         if (!(ws >= r.y && ws <= r.z)) ch.gq = nan;  // outside the columns
         // no branch in the rows: the eight chains overlap, and a cell
         // outside the window (NaN) or below the cutoff only drops its term

@@ -38,7 +38,6 @@ import numpy as np
 import torch
 
 from .kernels import BLOCK
-from .tiling import centre_offset
 
 __all__ = ["DEAD16", "pack16", "unpack16", "halo_expand", "device_layout",
            "point_entries", "gauss_entries", "gauss_finish", "rotp_finish",
@@ -180,22 +179,19 @@ def gauss_entries(icx, icy, r, valid, th: int, wt: int, nrb: int, ncb: int):
 
 
 def gauss_finish(kind: str, icx, icy, sub_cx, sub_cy, sx, sy, r, f0, valid,
-                 coef=None, row_offset: int = 0):
+                 coef=None):
     """Per-point planes and fills of a K2 ("gauss") or K4 ("rot") chunk
     from the decoded wire: icx, icy, r int64; sub_cx, sub_cy, sx, sy, f0
     float32; `coef` the three completed-square coefficients every point of
-    a K4 chunk shares (tiling.rot_quadratic_segs on the uniform shape);
-    `row_offset` as in tiling.centre_offset. Invalid points keep their
-    data and get r = -1."""
+    a K4 chunk shares (tiling.rot_quadratic_segs on the uniform shape).
+    Invalid points keep their data and get r = -1."""
     r = torch.where(valid, r, -1)
     if kind == "gauss":
         return ([icx.int(), icy.int(), sub_cx, sub_cy, sx, sy, r.int(), f0],
                 [0, 0, 0, 0, 1.0, 1.0, -1, 0])
-    icx_f, icy_f = icx.float(), icy.float()
     shared = [torch.full_like(sub_cx, float(c)) for c in coef]
-    return ([centre_offset(icx, sub_cx),
-             centre_offset(icy, sub_cy, row_offset), *shared, f0, icx_f,
-             icy_f, r.float()],
+    return ([sub_cx, sub_cy, *shared, f0, icx.float(), icy.float(),
+             r.float()],
             [0.0] * 8 + [-1.0])
 
 
@@ -209,7 +205,7 @@ def rotp_finish(icx, icy, sub_cx, sub_cy, r, f0, valid, coef, W: int,
     the frame of a row-offset view: rows [row_offset, row_offset + H) of
     `global_h`, as TorchEngine._prepare_rotp); one entry per (th, wt) tile
     a live window meets, none for a dead one. `coef` as in gauss_finish;
-    icx, icy, r int64."""
+    icx, icy, r int64 (icy in the view's rows)."""
     r = torch.where(valid, r, -1)
     W1, H1 = W - 1, H - 1
     wlo, whi = (icx - r).clamp(min=0), (icx + r).clamp(max=W1)
@@ -229,10 +225,10 @@ def rotp_finish(icx, icy, sub_cx, sub_cy, r, f0, valid, coef, W: int,
                           torch.where(alive, _fdiv(rhi, th), -1),
                           _fdiv(wlo, wt), _fdiv(whi, wt), ncb)
     shared = [torch.full_like(sub_cx, float(c)) for c in coef]
-    planes = [centre_offset(icx, sub_cx),
-              centre_offset(icy, sub_cy, row_offset), *shared, f0,
-              wlo.float(), whi.float(), rlo.float(), rhi.float()]
-    return eb, planes, [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0], idx
+    planes = [sub_cx, sub_cy, *shared, f0, wlo.float(), whi.float(),
+              rlo.float(), rhi.float(), icx.float(), icy.float()]
+    fills = [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    return eb, planes, fills, idx
 
 
 def line_runs_device(e0, e1, nruns_total: int, W: int, H: int,

@@ -11,12 +11,19 @@ PyTorch versions and their launch counters.
     corr rows; the caller sets it where the TPU had corr offsets.
   * K4 `rot_splat_dense` replaces the rot mode of the same function
     (two_d=True); source `csrc/rot_splat.cu`. params (nsub, 9, BLOCK)
-    float32 [xoff | yoff | s | sC | sA2 | f0 | icx | icy | r], masks
+    float32 [sub_cx | sub_cy | s | sC | sA2 | f0 | icx | icy | r], masks
     computed in the kernel.
   * K5 `rot_splat_packed` replaces `build_rot_packed_pallas`; same source.
-    params (nsub, 10, BLOCK) float32 [xoff | yoff | s | sC | sA2 | f0 |
-    wlo | whi | rlo | rhi], windows clipped on the host, in the port's own
-    sub-chunk-major tile layout (not the TPU's quad-major one).
+    params (nsub, 12, BLOCK) float32 [sub_cx | sub_cy | s | sC | sA2 | f0
+    | wlo | whi | rlo | rhi | icx | icy], windows clipped on the host, in
+    the port's own sub-chunk-major tile layout (not the TPU's quad-major
+    one).
+
+K4 and K5 form a cell's distance to the centre as the oracle does
+(engine/cpu_backend.py): dx = float32(w - icx) - sub_cx, dy =
+float32(h - icy) - sub_cy, the integer difference exact and one rounding.
+The TPU's planes held -(icx + sub_cx), rounded at the cell's absolute
+coordinate, which lost up to ~5e-4 of a cell at rows ~8000.
 
 All three take ascending `bids` (tile id = row_block * ncb + col_block over
 (th, wt) tiles of the (H_pad, W_pad) state fields), skip runs with bids
@@ -48,8 +55,9 @@ from . import _build
 from .kernels import BLOCK
 
 __all__ = ["GaussGeom", "ROT_CUT", "SplatPlan", "block_hits", "gauss_windows",
-           "rot_dense_windows", "rot_splat_dense", "rot_splat_dense_plain",
-           "rot_splat_packed", "rot_splat_packed_plain", "sorted_splat_gauss",
+           "rot_dense_windows", "rot_distances", "rot_splat_dense",
+           "rot_splat_dense_plain", "rot_splat_packed",
+           "rot_splat_packed_plain", "sorted_splat_gauss",
            "sorted_splat_gauss_plain", "splat_plan"]
 
 ROT_CUT = -19.931569        # -ln(1e6) * log2(e): the 1e-6 product cutoff
@@ -69,7 +77,7 @@ SMEM_LIMIT = 232_448
 # the ballot, and the records the walk reads (K2: the column record, the
 # column range, 8 wy; K4 / K5: the column and row records, 8 dy)
 _SMEM_WORDS = {"gauss": 8 + 4 + (4 + 2 + 8), "rot": 9 + 4 + (4 + 4 + 8),
-               "rotp": 10 + 4 + (4 + 4 + 8)}
+               "rotp": 12 + 4 + (4 + 4 + 8)}
 
 
 @dataclass(frozen=True)
@@ -374,7 +382,7 @@ def rot_splat_packed(states, params: torch.Tensor, bids: torch.Tensor, *,
                      th: int, wt: int) -> None:
     """K5: fold every live entry's rotated footprint, inside its
     host-clipped window, into `states`, in place."""
-    dev = _check("rot_splat_packed", states, params, bids, th, wt, 10,
+    dev = _check("rot_splat_packed", states, params, bids, th, wt, 12,
                  torch.float32)
     if dev.type == "cpu":
         rot_splat_packed_plain(states, params, bids, th=th, wt=wt)
@@ -393,11 +401,11 @@ _LN2 = 0.6931471805599453
 
 
 def _rot_plain(states, f, row0, col0, th, wt) -> None:
-    """K4's and K5's plain body: entries f (E, 10) in K5's form [xoff |
-    yoff | s | sC | sA2 | f0 | wlo | whi | rlo | rhi], each over its
-    window cut to its tile, the completed-square weights in the kernels'
-    formulas (csrc/rot_splat.cu), added term by term with `index_add_`,
-    in place."""
+    """K4's and K5's plain body: entries f (E, 12) in K5's form [sub_cx |
+    sub_cy | s | sC | sA2 | f0 | wlo | whi | rlo | rhi | icx | icy], each
+    over its window cut to its tile, the completed-square weights in the
+    kernels' formulas (csrc/rot_splat.cu), added term by term with
+    `index_add_`, in place."""
     if not len(f):
         return
     ny = int((f[:, 9] - f[:, 8]).max()) + 1
@@ -405,10 +413,9 @@ def _rot_plain(states, f, row0, col0, th, wt) -> None:
 
     def weigh(f, h, w, row_in, col_in):
         hs, ws = h.float(), w.float()
-        dx = ws + f[:, 0, None]
+        dx, dy = rot_distances(f, h, w)
         u = dx * f[:, 4, None]
         gq = -(u * u)
-        dy = hs + f[:, 1, None]
         v = (dy[:, :, None] + (dx * f[:, 2, None])[:, None, :]) \
             * f[:, 3, None, None]
         q2n = gq[:, None, :] - v * v
@@ -423,6 +430,16 @@ def _rot_plain(states, f, row0, col0, th, wt) -> None:
 
     _splat_windows(states, f, row0, col0, th, wt, f[:, 8].long(),
                    f[:, 6].long(), ny, nx, weigh)
+
+
+def rot_distances(f, h, w):
+    """The distances to the centre (dx (E, nx), dy (E, ny)) that K4 and
+    K5 form for entries f (E, 12) in K5's form at columns w (E, nx) and
+    rows h (E, ny): dx = float32(w - icx) - sub_cx, dy = float32(h - icy)
+    - sub_cy, the oracle's rdx / rdy (engine/cpu_backend.py). The integer
+    differences are exact in float32, so each is one rounding."""
+    return ((w.float() - f[:, 10, None]) - f[:, 0, None],
+            (h.float() - f[:, 11, None]) - f[:, 1, None])
 
 
 def rot_dense_windows(icx, icy, r, geom: GaussGeom):
@@ -459,8 +476,8 @@ def rot_splat_dense_plain(states, params: torch.Tensor, bids: torch.Tensor,
                              lambda f: f[:, 8] >= 0)
     win = torch.stack(rot_dense_windows(f[:, 6], f[:, 7], f[:, 8], geom), 1)
     keep = (win[:, 0] <= win[:, 1]) & (win[:, 2] <= win[:, 3])
-    _rot_plain(states, torch.cat([f[:, :6], win], 1)[keep], row0[keep],
-               col0[keep], th, wt)
+    _rot_plain(states, torch.cat([f[:, :6], win, f[:, 6:8]], 1)[keep],
+               row0[keep], col0[keep], th, wt)
 
 
 def rot_splat_packed_plain(states, params: torch.Tensor, bids: torch.Tensor,

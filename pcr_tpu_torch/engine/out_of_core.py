@@ -27,9 +27,9 @@ acquire/release so GPU mode handles grids bigger than VRAM
     (row_offset = r0, global_height = H): home tiles are clamped at the
     full grid's last row, as the resident engine clamps them (a Gaussian
     centred on the grid's lower edge keeps its footprint in a partial last
-    band), and K4's and K5's float centre offsets are rounded at full-grid
-    rows and moved back exactly (tiling.centre_offset), so every cell's
-    distance to a centre carries the resident engine's bits.
+    band); K4 and K5 form a cell's distance to a centre from the integer
+    row difference, which a band's local rows give exactly, so it carries
+    the resident engine's bits.
 
 `gpu_memory_budget` bounds the band's device state: pick_band_rows keeps
 it within a quarter of the budget, as pcr_tpu does. A staged cloud's

@@ -94,10 +94,10 @@ def shard_view(cfg: GridConfig, row_offset: int, rows: int,
     """The GridConfig of rows [row_offset, row_offset + rows) of a grid of
     `global_height` rows (by default cfg's own), in those rows' own frame,
     carrying the whole grid's (row_offset, global_height, the tiles):
-    routing, the home-tile clips and the centre offsets read it. The one
-    maker of row-offset views: a mesh's row shards (parallel/engine.py)
-    and an out-of-core band (TorchEngine.band_view). A one-tile grid stays
-    one tile, so a view clips footprints to its own rows only."""
+    routing and the home-tile clips read it. The one maker of row-offset
+    views: a mesh's row shards (parallel/engine.py) and an out-of-core
+    band (TorchEngine.band_view). A one-tile grid stays one tile, so a
+    view clips footprints to its own rows only."""
     view = dataclasses.replace(cfg, height=rows)
     view.row_offset = row_offset
     view.global_height = (cfg.height if global_height is None
@@ -383,9 +383,10 @@ class TorchEngine:
         """This engine over rows [row_offset, row_offset + H) of a grid of
         `global_height` rows (an out-of-core band): the same state, arena
         and kernels, with a cfg carrying the row-offset view that routing,
-        the home-tile clips (GaussGeom, _prepare_rotp) and the centre
-        offsets (tiling.centre_offset) read, so every home tile and every
-        centre is the full grid's."""
+        the home-tile clips (GaussGeom, _prepare_rotp) read, so every home
+        tile is the full grid's. A centre needs no rule of its own: K4 and
+        K5 form a cell's distance to it from the integer row difference,
+        which is the same in any view (tiling.rot_quadratic_segs)."""
         view = copy.copy(self)
         view.cfg = shard_view(self.cfg, row_offset, self.H, global_height)
         view.geom = GaussGeom.of(view.cfg)
@@ -742,9 +743,7 @@ class TorchEngine:
         one = SimpleNamespace(
             sx=np.full(1, sx, np.float32), sy=np.full(1, sy, np.float32),
             cos_rot=np.full(1, cos_rot, np.float32),
-            sin_rot=np.full(1, sin_rot, np.float32),
-            icx=np.zeros(1, np.int32), icy=np.zeros(1, np.int32),
-            sub_cx=z, sub_cy=z)
+            sin_rot=np.full(1, sin_rot, np.float32), sub_cx=z, sub_cy=z)
         quad = rot_quadratic_segs(one, z)
         return SimpleNamespace(sx=float(sx), sy=float(sy), r=int(r),
                                coef=[float(q[0]) for q in quad[2:5]])
@@ -821,7 +820,7 @@ class TorchEngine:
                                                 plan.wt, nrb, ncb)
             planes, fills = device_prep.gauss_finish(
                 plan.kind, icx, icy, sub_cx, sub_cy, sx, sy, r, f0, valid,
-                coef, self._row_view()[0])
+                coef)
         params, bids = device_prep.device_layout(eb, planes, nrb * ncb,
                                                  fills, idx)
         if plan.kind != "gauss":
@@ -839,7 +838,7 @@ class TorchEngine:
             return self._prepare_rotp(gp, valid, r, f0, n)
         th, wt = plan.th, plan.wt
         if plan.kind == "rot":
-            quad = rot_quadratic_segs(gp, f0, self._row_view()[0])
+            quad = rot_quadratic_segs(gp, f0)
             segs = [(q, 0.0) for q in quad] + [
                 (gp.icx.astype(np.float32), 0.0),
                 (gp.icy.astype(np.float32), 0.0),
@@ -863,10 +862,12 @@ class TorchEngine:
 
     def _prepare_rotp(self, gp, valid, r, f0, n):
         """K5's chunk (TpuEngine._prepare_gaussian_rotp, :1808-1867): the
-        completed-square coefficients plus each point's window clipped on
-        the host to the grid and its home tile. Entries are copied into
-        every (ROTP_ROW_BLOCK x 128) tile the window touches, in the
-        port's sub-chunk-major layout; dead windows get no entry. The
+        completed-square coefficients, each point's window clipped on the
+        host to the grid and its home tile, and its centre cell (icx, icy),
+        from which K5 forms each cell's distance to the centre. Entries
+        are copied into every (ROTP_ROW_BLOCK x 128) tile the window
+        touches, in the port's sub-chunk-major layout; dead windows get no
+        entry. The
         TPU's quarter-slot, quad-major layout is not carried over. The
         card builds the same bytes with device_prep.rotp_finish."""
         th, wt = ROTP_ROW_BLOCK, ROTP_COL_TILE
@@ -895,11 +896,13 @@ class TorchEngine:
         ncb = self.W_state // wt
         idx, eb = halo_copies(rlo // th, np.where(alive, rhi // th, -1),
                               wlo // wt, whi // wt, ncb)
-        quad = rot_quadratic_segs(gp, f0, off)
+        quad = rot_quadratic_segs(gp, f0)
         segs = [(quad[0], 0.0), (quad[1], 0.0), (quad[2], 0.0),
                 (quad[3], 1.0), (quad[4], 0.0), (quad[5], 0.0),
                 (wlo.astype(np.float32), 1.0), (whi.astype(np.float32), 0.0),
-                (rlo.astype(np.float32), 0.0), (rhi.astype(np.float32), 0.0)]
+                (rlo.astype(np.float32), 0.0), (rhi.astype(np.float32), 0.0),
+                (gp.icx.astype(np.float32), 0.0),
+                (gp.icy.astype(np.float32), 0.0)]
         return self._layout_upload("rotp", eb, self.H_pad // th * ncb, segs,
                                    idx, n, th, wt, dtype=torch.float32)
 

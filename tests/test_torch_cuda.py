@@ -1036,3 +1036,61 @@ def test_mesh_merges_across_devices(card, owners, monkeypatch):
                 assert np.array_equal(g, w, equal_nan=True)
             else:
                 np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("tall", [True, False], ids=["rows", "cols"])
+@pytest.mark.parametrize("glyph", ["rot", "rotp"])
+def test_far_from_the_origin_k4_k5_hold_the_oracle(card, glyph, tall,
+                                                   monkeypatch):
+    """K4 (rotated 8 x 3) and K5 (4 x 1.5) on the card, on a 64 x 16384
+    (rows) or 16384 x 64 (cols) grid: centres in the last 384 cells of the
+    long axis and the same centres shifted into its first 384, values of
+    both signs, Sum. Each block within 1e-5 of the numpy oracle relative
+    to each cell's sum of |terms|, with the oracle's NaN footprint: the
+    kernels form the distance to the centre from the integer difference,
+    so the far block is no worse than the near one."""
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    long, n = 16384, (300 if glyph == "rot" else 1000)
+    gc = (make_grid_config(64.0, float(long)) if tall
+          else make_grid_config(float(long), 64.0))
+    rng = np.random.default_rng(11)
+    along = rng.uniform(long - 384, long, n)
+    across = rng.uniform(0, 64, n)
+    along = np.concatenate([along, along - (long - 384)])
+    across = np.concatenate([across, across])
+    x, y = (across, long - along) if tall else (along, 64.0 - across)
+    v = np.tile(rng.uniform(-2, 2, n), 2).astype(np.float32)
+    glyphs = {"rot": dict(default_sigma_x=8.0, default_sigma_y=3.0),
+              "rotp": dict(default_sigma_x=4.0, default_sigma_y=1.5)}
+    spec = pcr.gaussian_splat_spec("v", default_rotation=0.6,
+                                   **glyphs[glyph])
+    spec.type = RT.Sum
+    fn = gk.rot_splat_dense if glyph == "rot" else gk.rot_splat_packed
+
+    def band(values, mode):
+        c = pcr.PointCloud.create(2 * n)
+        c.set_x_array(x)
+        c.set_y_array(y)
+        c.add_channel("v", pcr.DataType.Float32)
+        c.set_channel_array_f32("v", values)
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=[spec], exec_mode=mode,
+            gpu_require_strict=True))
+        p.ingest(c)
+        p.finalize()
+        return p.result().band_array(0)
+
+    fn.launches = 0
+    got = band(v, pcr.ExecutionMode.GPU)
+    assert fn.launches >= 1
+    want = band(v, pcr.ExecutionMode.CPU)
+    scale = band(np.abs(v), pcr.ExecutionMode.CPU)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    m = ~np.isnan(want) & (scale > 0)
+    err = np.zeros(got.shape)
+    err[m] = np.abs(got[m] - want[m]) / scale[m]
+    if not tall:
+        err = err.T
+    far, near = float(err[-384:].max()), float(err[:384].max())
+    assert far <= TOL and near <= TOL, (far, near)
+    assert far <= 1.5 * near + 1e-7, (far, near)

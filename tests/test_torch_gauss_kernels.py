@@ -10,10 +10,19 @@ interpret mode and through the port:
   * K5 on each package's own layout (the TPU's quad-major wire is not
     carried over), so only the results are compared.
 
+K4's and K5's first two planes differ: the JAX package carries the
+centre offset -(icx + sub_cx), -(icy + sub_cy), rounded at the cell's
+absolute coordinate, the port the sub-cell offsets sub_cx, sub_cy (the
+kernels form (w - icx) - sub_cx, as the oracle does). The layout twin holds
+the identity between them; a JAX K4 buffer goes through the port's K4 with
+those planes in the port's form (`as_port_k4`), every other plane as it
+is.
+
 Tolerance atol = rtol = 1e-5 on the raw state sums: the two add the same
-float32 terms in different orders (and K4/K5 round the completed square in
-another order, which moves a term by ~1e-6 relative at these coordinates).
-The footprint (cells that received any weight) must be the same.
+float32 terms in different orders (and K4/K5 round the distance to the
+centre and the completed square in another order, which moves a term by
+~1e-6 relative at these coordinates). The footprint (cells that received
+any weight) must be the same.
 """
 
 import numpy as np
@@ -99,6 +108,24 @@ def jax_params(chunk):
     return params, buf[nseg * nsub * block:]
 
 
+def as_port_k4(jp, jb, pp, pb):
+    """A JAX K4 buffer (jp, jb) with planes 0 and 1 in the port's form:
+    the sub-cell offsets, from the port's layout (pp, pb) of the same
+    points, which is the JAX layout less its padding
+    (test_port_layout_is_the_jax_layout_without_ladder_padding); padding
+    takes the port's fill, 0. Checks the identity JAX plane ==
+    float32(-(ic + sub)) on the way."""
+    rows = np.flatnonzero(np.isin(jb, pb))[: len(pb)]
+    assert np.array_equal(jb[rows], pb)
+    assert np.array_equal(jp[rows, 2:].view(np.int32),
+                          pp[:, 2:].view(np.int32))
+    assert np.array_equal(jp[rows, :2], -(pp[:, 6:8] + pp[:, :2]))
+    out = jp.copy()
+    out[:, :2] = 0.0
+    out[rows, :2] = pp[:, :2]
+    return out
+
+
 def run_jax(chunk, states):
     import jax.numpy as jnp
     out = chunk.builder()(tuple(jnp.asarray(s) for s in states), chunk.buf)
@@ -136,12 +163,15 @@ def test_k2_plain_matches_pallas(monkeypatch, glyph, rtype, tile):
 def test_k4_plain_matches_pallas(monkeypatch, rtype, tile):
     gc = make_grid_config(w=200.0, h=150.0, tile=tile)
     spec = spec_of("rot8", rtype)
-    jeng, _ = engines(monkeypatch, gc, spec)
-    chunk = jax_chunk(jeng, "rot8", inputs(gc, spec, n=600))
+    jeng, port = engines(monkeypatch, gc, spec)
+    inp = inputs(gc, spec, n=600)
+    chunk = jax_chunk(jeng, "rot8", inp)
     params, bids = jax_params(chunk)
+    (st,) = port.prepare_gaussian(0, *like(port_pkg, inp))
+    params = as_port_k4(params, bids, st.params.numpy(), st.bids.numpy())
     want = run_jax(chunk, zero_states(jeng))
     got = [torch.from_numpy(s) for s in zero_states(jeng)]
-    gk.rot_splat_dense(got, torch.from_numpy(params.copy()),
+    gk.rot_splat_dense(got, torch.from_numpy(params),
                        torch.from_numpy(bids.copy()), th=chunk.key[4],
                        wt=128, geom=GaussGeom.of(gc))
     for g, w in zip(got, want):
@@ -210,7 +240,10 @@ def test_port_layout_is_the_jax_layout_without_ladder_padding(monkeypatch,
                                                               glyph):
     """K2 / K4 take the JAX package's bytes: the same sub-chunks in the
     same order, less the ladder padding at the end and the one all-dead
-    sub-chunk the JAX layout gives each empty tile."""
+    sub-chunk the JAX layout gives each empty tile. K4's planes 0 and 1
+    are the sub-cell offsets where the JAX package has -(ic + sub), the
+    identity float32(-(ic + sub)) == JAX's plane holding entry by entry;
+    every other plane is the JAX package's bit for bit."""
     gc = make_grid_config(w=200.0, h=150.0, tile=64)
     jeng, port, inp, st = port_chunk(monkeypatch, glyph, gc)
     jp, jb = jax_params(jax_chunk(jeng, glyph, inp))
@@ -222,8 +255,11 @@ def test_port_layout_is_the_jax_layout_without_ladder_padding(monkeypatch,
     keep = np.isin(jb, pb)
     assert (jp[~keep][:, r_seg] == dead).all()         # empty tiles' fill
     assert np.array_equal(jb[keep][: len(pb)], pb)
-    assert np.array_equal(jp[keep][: len(pb)].view(np.int32),
-                          pp.view(np.int32))
+    if glyph == "rot8":
+        as_port_k4(jp, jb, pp, pb)
+    else:
+        assert np.array_equal(jp[keep][: len(pb)].view(np.int32),
+                              pp.view(np.int32))
     tail = jp[keep][len(pb):]
     assert (tail[:, r_seg] == dead).all() and (jb[keep][len(pb):]
                                                 == pb[-1]).all()
@@ -250,7 +286,7 @@ def _inputs(kind):
     """Two sub-chunks of dead entries (r = -1, or an empty K5 window)."""
     states = [torch.zeros(256, 256), torch.zeros(256, 256)]
     dtype = torch.int32 if kind == "gauss" else torch.float32
-    nseg, dead = {"gauss": (8, 6), "rot": (9, 8), "rotp": (10, 6)}[kind]
+    nseg, dead = {"gauss": (8, 6), "rot": (9, 8), "rotp": (12, 6)}[kind]
     params = torch.zeros(2, nseg, 2048, dtype=dtype)
     params[:, dead] = 1 if kind == "rotp" else -1
     return states, params, torch.zeros(2, dtype=torch.int32)
@@ -354,7 +390,7 @@ def test_splat_plan_covers_every_tile_within_shared_memory(kind):
     # per entry: its segments, 4 window words, then K2's column record,
     # column range and 8 wy, or K4 / K5's two records and 8 dy
     words = {"gauss": 8 + 4 + 4 + 2 + 8, "rot": 9 + 4 + 4 + 4 + 8,
-             "rotp": 10 + 4 + 4 + 4 + 8}[kind]
+             "rotp": 12 + 4 + 4 + 4 + 8}[kind]
     for th, wt in shapes:
         plan = gk.splat_plan(kind, th, wt)
         assert plan.slices * gk.SLICE_ROWS * gk.SLICE_COLS == th * wt
@@ -522,13 +558,18 @@ def test_plain_matches_pallas_on_the_walks_borders(monkeypatch, glyph, th,
     gc = make_grid_config(w=200.0, h=150.0, tile=tile)
     spec = ref.gaussian_splat_spec("v", **WALK_GLYPHS[glyph])
     spec.type = RT.Average
-    jeng, _ = engines(monkeypatch, gc, spec)
-    (chunk,) = jeng.prepare_gaussian(0, *border_inputs(gc, spec))
+    jeng, port = engines(monkeypatch, gc, spec)
+    inp = border_inputs(gc, spec)
+    (chunk,) = jeng.prepare_gaussian(0, *inp)
     kind = chunk.key[0]
     assert kind == ("pallas_rot2" if glyph == "rot8" else "pallas_gauss2d")
     assert chunk.key[4] == th
     wt = 128 if kind == "pallas_rot2" else chunk.key[5]
     params, bids = jax_params(chunk)
+    if kind == "pallas_rot2":
+        (st,) = port.prepare_gaussian(0, *like(port_pkg, inp))
+        params = as_port_k4(params, bids, st.params.numpy(),
+                            st.bids.numpy())
     p, b = torch.from_numpy(params.copy()), torch.from_numpy(bids.copy())
     geom = GaussGeom.of(gc)
     if kind == "pallas_rot2":

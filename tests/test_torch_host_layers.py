@@ -233,9 +233,16 @@ def test_gauss_routing_constants_are_the_same():
                                      c.x_array(), c.y_array(), None, None,
                                      None)
     f0 = c.channel_array_f32("v")
-    for a, b in zip(TpuEngine._rot_quadratic_segs(gp, f0),
-                    tiling.rot_quadratic_segs(gp, f0)):
-        assert np.array_equal(a, b)
+    jax_segs = TpuEngine._rot_quadratic_segs(gp, f0)
+    port_segs = tiling.rot_quadratic_segs(gp, f0)
+    # the coefficients bit for bit; the centre: the port carries the
+    # sub-cell offsets, pcr_tpu float32(-(ic + sub)) (ROADMAP Queue 3)
+    for a, b in zip(jax_segs[2:], port_segs[2:]):
+        assert np.array_equal(a.view(np.int32), b.view(np.int32))
+    for a, b, ic, sub in zip(jax_segs[:2], port_segs[:2], (gp.icx, gp.icy),
+                             (gp.sub_cx, gp.sub_cy)):
+        assert np.array_equal(b, sub)
+        assert np.array_equal(a, -(ic.astype(np.float32) + sub))
 
 
 @pytest.mark.parametrize("rtype", list(RT))

@@ -27,6 +27,12 @@ SOURCES = sorted(
               recursive=True)) + ["chip_smoke.py"]
 
 
+ENTRY_POINTS = [f"pcr_tpu_torch.examples.{m}" for m in (
+    "quickstart", "glyph_splatting", "streaming_resume", "custom_reduction",
+    "smiley_face", "multichip")] + [f"pcr_tpu_torch.scripts.{m}" for m in (
+        "run_lidar_pipeline", "generate_glyph_patterns", "compare_patterns")]
+
+
 def banned_imports(source: str, path: str = "<src>") -> list[str]:
     """Names of the banned packages that `source` imports."""
     found = []
@@ -59,7 +65,9 @@ def test_the_sources_are_found():
                 "io/rasterio_bridge.py", "parallel/sharding.py",
                 "parallel/engine.py"):
         assert f"pcr_tpu_torch/{new}" in SOURCES
-    assert len(SOURCES) > 30
+    for entry in ENTRY_POINTS:
+        assert entry.replace(".", "/") + ".py" in SOURCES
+    assert len(SOURCES) > 40
 
 
 @pytest.mark.parametrize("path", SOURCES)
@@ -116,6 +124,35 @@ def test_every_module_imports_with_the_jax_package_blocked():
     assert r.returncode == 0, r.stderr[-3000:]
     n, ok = r.stdout.split()
     assert ok == "ok" and int(n) >= 25
+
+
+EVERY_ENTRY_POINT = textwrap.dedent("""
+    import contextlib, io, runpy, sys
+    for name in ("jax", "pcr_tpu", "pcr"):
+        sys.modules[name] = None       # any import of them now raises
+    for mod in sys.argv[1:]:
+        sys.argv = [mod, "--help"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                runpy.run_module(mod, run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, (mod, e.code)
+        assert out.getvalue().startswith("usage:"), mod
+        print(mod, "ok")
+""")
+
+
+def test_every_entry_point_runs_with_the_jax_package_blocked():
+    """`python -m` of each example and script (its --help) with jax,
+    pcr_tpu and pcr blocked."""
+    env = dict(os.environ,
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", EVERY_ENTRY_POINT,
+                        *ENTRY_POINTS], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split() == [w for m in ENTRY_POINTS for w in (m, "ok")]
 
 
 def test_an_install_ships_every_kernel_source():

@@ -328,13 +328,12 @@ def test_rotp_shard_boundary_straddler(monkeypatch):
     """Rotated Gaussians whose home tile lies in the shard below a border
     stage as dead windows in the shard above (K5's layout, both routes),
     never clamped into it: the mesh's band is the resident engine's bit
-    for bit. pcr_tpu's mesh holds the oracle's band within its 2e-5 here;
-    the port's resident K5 does not on this input (rows near 1000, sigma
-    0.7, values of both signs: 1.65e-4, pcr_tpu's resident K5 4.3e-4; a
-    float32 centre offset near 1000 rows, ROADMAP Queue 3), so the port is
-    held to the resident engine bit for bit, and to the oracle within
-    2e-4, a bar set from that 1.65e-4 reading: the mesh may not stray
-    further from the oracle than the resident engine does."""
+    for bit, and both packages' meshes hold the oracle's band within
+    pcr_tpu's mesh bar, 2e-5 (rows near 1000, sigma 0.7, values of both
+    signs). Before K4 / K5 formed the distance to the centre from the
+    integer row difference, the port read 1.65e-4 here (pcr_tpu's
+    resident K5 4.3e-4: a float32 centre offset rounded near row 1000)
+    and was held to 2e-4 (ROADMAP Queue 3, repaired)."""
     monkeypatch.setenv("PCR_PALLAS", "interpret")
     gc, c = straddlers()
     spec = gauss(default_sigma_x=1.2, default_sigma_y=0.7,
@@ -345,7 +344,7 @@ def test_rotp_shard_boundary_straddler(monkeypatch):
     _, (oracle,) = run(ref, CPU, gc, [spec], [c])
     assert np.array_equal(got.view(np.int32), resident.view(np.int32))
     near(jax_band, oracle, 2e-5, rtol=0.0)
-    near(got, oracle, 2e-4, rtol=0.0)
+    near(got, oracle, 2e-5, rtol=0.0)
     eng = p._engine
     assert eng.local_rows == 128
     # every shard but the first holds centres in its top rows, and every
@@ -363,7 +362,7 @@ def test_rotp_shard_boundary_straddler(monkeypatch):
             for ch in chunks:
                 assert ch.kind == "rotp"
                 live = ch.params[:, 6] <= ch.params[:, 7]
-                cy = -ch.params[:, 1][live]          # -(icy + sub_cy)
+                cy = (ch.params[:, 11] + ch.params[:, 1])[live]  # icy + sub
                 assert bool(((cy > -1) & (cy < 128)).all()), s
 
 
