@@ -161,7 +161,25 @@ Phases:
       clusters pile up to ~1.5e4 terms in a cell), each mode's io_read_s /
       ingest_s / drain_s / finalize_s / library_mpts_per_s printed; the
       glyph patterns, scenes 01-08 in gpu and cpu mode, every raster
-      PASSing the comparator.
+      PASSing the comparator. The LiDAR gpu Point row's finalize is split
+      on the host's clock (finalize_split): the device finalize and its
+      copy to the host, the touched-tile masking of each strip, and on
+      the writer's thread the GeoTIFF's tile codec, its file writes and
+      its tile copies;
+  (q) the diagnostics and the quick validation
+      (pcr_tpu_torch.scripts.diagnostics, .quick_validation), in this
+      process: device_health (quick validation's section 1: the probes,
+      K1 against its plain version, 2 GB on the card), boundary_points
+      (PASS: bit-identical to the CPU, 10 points counted) and
+      transfer_sizes, each exiting 0, with the pinned 256 MB H2D rate
+      beside (k)'s upload_rates; grid_sizes --mode GPU at its defaults
+      (eight sizes, 1x1 to 3001x1999, 100k points, Count); the same eight
+      sizes on the card against CPU mode with Count (exactly), sigma 4
+      Gaussian (K2) and Line half length 4 (K3) Average (1e-5, or
+      gauss_rtol of a cell's terms, cell_rtol, where the one-cell and
+      one-row grids pile up to 1e5 terms); then quick validation's
+      quickstart (a process of its own) and ladder (CPU and Auto each sum
+      1000 ones, Auto on the card).
 The card's SM clock, temperature, power draw and active clock-limit
 reasons are printed ("card state") after the build and after each phase
 that times a kernel ((b), (f), (h), (j)), and beside the kernels line, so
@@ -171,7 +189,7 @@ on the card (an OutOfCoreTorchEngine of several bands where (l) and (m)
 set a budget, a mesh engine with every shard on the card where (n) sets
 a mesh), through its kernels: each path is driven with the launch
 counters set to 0 just before it and read just after; the kernels line
-counts the launches of the main paths and of (l)-(p). Nothing of
+counts the launches of the main paths and of (l)-(q). Nothing of
 pcr_tpu or jax may be imported (checked at the end). The line before last is a JSON
 summary of the kernels, each with its bound: the larger of the bytes it
 must move (each input read once, each output written once) over 3.35 TB/s
@@ -180,6 +198,8 @@ data-sheet peaks); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
+import functools
 import json
 import os
 import shutil
@@ -912,6 +932,7 @@ def upload_rates(torch, nbytes=256 << 20, reps=5):
     print(f"(k) upload of {nbytes >> 20} MiB, best of {reps}: pageable "
           f"{rates['pageable']:.2f} GB/s, pinned on the copy stream "
           f"{rates['pinned']:.2f} GB/s")
+    return rates
 
 
 def busy_share(torch, pcr, gc, specs, c, label):
@@ -1781,6 +1802,97 @@ def phase_o(torch, pcr, gk, size=8192, block=512, points=(25_000, 100_000)):
     return out
 
 
+def kernel_fns(kernels, gk, lk):
+    """The wrappers of K1-K5 by the names the phases count them under."""
+    return {"point": kernels.sorted_splat_point,
+            "gauss": gk.sorted_splat_gauss, "rot": gk.rot_splat_dense,
+            "rotp": gk.rot_splat_packed, "rect": lk.rect_splat}
+
+
+def counted(torch, fns, total, phase, label, run, need):
+    """run() with the launch counters of `fns` set to 0 just before and
+    read just after, added into `total`; each kernel in `need` must have
+    launched. Returns (run's result, wall, the launches made)."""
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: f.launches for k, f in fns.items()}
+    for k in need:
+        check(got[k] >= 1, f"{phase} {label}: {k} was never launched")
+    for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+    return out, wall, {k: v for k, v in got.items() if v}
+
+
+@contextlib.contextmanager
+def finalize_split():
+    """Host-clock seconds and calls of the parts of a device finalize that
+    streams a GeoTIFF (Pipeline._finalize_streamed), summed over the
+    block: the whole finalize; the device finalize and its copy to the
+    host (TorchEngine.finalize_strips); the touched-tile masking of each
+    strip on the main thread (Pipeline._mask_strip); and, on the writer's
+    one thread, StreamingGeoTiffWriter._encode_strip, of which the tile
+    codec (geotiff._compress) and the file writes (_TiffBuilder.write_raw)
+    are parts (the rest copies each tile out of the strip), then the
+    writer's close (the IFD). Yields (seconds, calls) by part; the
+    functions are restored after. It measures and changes nothing."""
+    from pcr_tpu_torch.engine.pipeline import Pipeline
+    from pcr_tpu_torch.engine.torch_backend import TorchEngine
+    from pcr_tpu_torch.io import geotiff
+    parts = {"finalize": (Pipeline, "finalize"),
+             "device_finalize_d2h": (TorchEngine, "finalize_strips"),
+             "mask_strip": (Pipeline, "_mask_strip"),
+             "encode_strip": (geotiff.StreamingGeoTiffWriter,
+                              "_encode_strip"),
+             "compress": (geotiff, "_compress"),
+             "file_write": (geotiff._TiffBuilder, "write_raw"),
+             "close": (geotiff.StreamingGeoTiffWriter, "close")}
+    secs = dict.fromkeys(parts, 0.0)
+    calls = dict.fromkeys(parts, 0)
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                secs[name] += time.perf_counter() - t0
+                calls[name] += 1
+        return run
+
+    saved = []
+    try:
+        for name, (owner, attr) in parts.items():
+            fn = getattr(owner, attr)
+            saved.append((owner, attr, fn))
+            setattr(owner, attr, timed(name, fn))
+        yield secs, calls
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+def print_split(label, secs, calls):
+    tile_copy = (secs["encode_strip"] - secs["compress"]
+                 - secs["file_write"])
+    main = secs["device_finalize_d2h"] + secs["mask_strip"]
+    print(f"{label} finalize split (host clock, s): finalize="
+          f"{secs['finalize']!r}; main thread: device finalize + D2H="
+          f"{secs['device_finalize_d2h']!r} ({calls['device_finalize_d2h']} "
+          f"calls), _mask_strip={secs['mask_strip']!r} "
+          f"({calls['mask_strip']} strips), waiting for the writer="
+          f"{secs['finalize'] - main - secs['close']!r}; writer thread: "
+          f"_encode_strip={secs['encode_strip']!r} "
+          f"({calls['encode_strip']} tile rows) of which codec="
+          f"{secs['compress']!r} ({calls['compress']} tiles), file write="
+          f"{secs['file_write']!r}, tile copies={tile_copy!r}; then on the "
+          f"main thread close (IFD)={secs['close']!r}")
+
+
 def phase_p(torch, pcr, kernels, gk, lk, tmp, lidar_size=(40, 500_000,
                                                           8192.0)):
     """(p), see the module docstring; `lidar_size` is the harness's
@@ -1793,26 +1905,9 @@ def phase_p(torch, pcr, kernels, gk, lk, tmp, lidar_size=(40, 500_000,
     from pcr_tpu_torch.scripts import generate_glyph_patterns as patterns
     from pcr_tpu_torch.scripts import run_lidar_pipeline as lidar
     GPU, CPU = pcr.ExecutionMode.GPU, pcr.ExecutionMode.CPU
-    fns = {"point": kernels.sorted_splat_point,
-           "gauss": gk.sorted_splat_gauss, "rot": gk.rot_splat_dense,
-           "rotp": gk.rot_splat_packed, "rect": lk.rect_splat}
-    total = dict.fromkeys(fns, 0)
-
-    def on_card(label, run, need):
-        """run() with the launch counters set to 0 just before and read
-        just after; each kernel in `need` must have launched."""
-        for f in fns.values():
-            f.launches = 0
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {k: f.launches for k, f in fns.items()}
-        for k in need:
-            check(got[k] >= 1, f"(p) {label}: {k} was never launched")
-        for k in fns:
-            total[k] += got[k]
-        return out, wall, {k: v for k, v in got.items() if v}
+    total = {}
+    on_card = functools.partial(counted, torch, kernel_fns(kernels, gk, lk),
+                                total, "(p)")
 
     def oracle(run):
         t0 = time.perf_counter()
@@ -1914,6 +2009,12 @@ def phase_p(torch, pcr, kernels, gk, lk, tmp, lidar_size=(40, 500_000,
                                       os.path.join(tmp, f"lidar_{mode}.tif"))
             if mode == "cpu":
                 (stats, bands[mode]), _ = oracle(run)
+            elif (glyph, mode) == ("point", "gpu"):
+                with finalize_split() as (secs, calls):
+                    (stats, bands[mode]), _, launches = on_card(
+                        f"LiDAR {glyph} {mode}", run, ["point"])
+                print_split(f"(p) LiDAR point gpu {gc.width}x{gc.height}",
+                            secs, calls)
             else:
                 (stats, bands[mode]), _, launches = on_card(
                     f"LiDAR {glyph} {mode}", run,
@@ -1970,6 +2071,95 @@ def phase_p(torch, pcr, kernels, gk, lk, tmp, lidar_size=(40, 500_000,
     print(f"(p) patterns: scenes 01-08 {len(results)} rasters PASS, "
           f"max_diff={worst!r}; card {w:.3f}s launches={launches}, "
           f"CPU {ow:.3f}s")
+    return total
+
+
+def phase_q(torch, pcr, kernels, gk, lk, points=100_000):
+    """(q), see the module docstring; `points` is each grid's cloud, which
+    a rehearsal on the CPU may shrink. Returns the launches of K1-K5."""
+    from pcr_tpu_torch.scripts import quick_validation
+    from pcr_tpu_torch.scripts.diagnostics import (boundary_points,
+                                                   grid_sizes,
+                                                   transfer_sizes)
+    GPU, CPU = pcr.ExecutionMode.GPU, pcr.ExecutionMode.CPU
+    total = {}
+    on_card = functools.partial(counted, torch, kernel_fns(kernels, gk, lk),
+                                total, "(q)")
+
+    # the card probe (device_health, quick validation's section 1): its K1
+    # launches compare the kernel with its plain version and are not
+    # counted
+    check(quick_validation.section_probe(), "(q) device_health failed")
+    rc, w, launches = on_card("boundary_points",
+                              lambda: boundary_points.main([]), ["point"])
+    check(rc == 0, f"(q) boundary_points exit code {rc}")
+    print(f"(q) boundary_points: PASS {w:.3f}s launches={launches}")
+    check(transfer_sizes.main([]) == 0, "(q) transfer_sizes failed")
+    mine = transfer_sizes.measure(256)
+    theirs = upload_rates(torch)
+    print(f"(q) pinned 256 MB H2D: transfer_sizes "
+          f"{mine['h2d_pinned'] * 2**20 / 1e9:.2f} GB/s (CUDA events), "
+          f"(k)'s upload_rates {theirs['pinned']:.2f} GB/s (host clock); "
+          f"pageable {mine['h2d_pageable'] * 2**20 / 1e9:.2f} and "
+          f"{theirs['pageable']:.2f} GB/s")
+    rc, w, launches = on_card("grid_sizes", lambda: grid_sizes.main(
+        ["--mode", "GPU"]), ["point"])
+    check(rc == 0, f"(q) grid_sizes --mode GPU exit code {rc}")
+    print(f"(q) grid_sizes --mode GPU: PASS {w:.3f}s launches={launches}")
+
+    # the same eight sizes on the card against CPU mode: Count exactly,
+    # sigma 4 Gaussian (K2) and Line hl 4 (K3) Average at 1e-5, or
+    # gauss_rtol of a cell's terms past ~1e4 terms (cell_rtol)
+    specs = {"point": (pcr.ReductionSpec(value_channel="value",
+                                         type=pcr.ReductionType.Count), 0),
+             "gauss": (pcr.gaussian_splat_spec("value", default_sigma=4.0),
+                       12),
+             "rect": (pcr.line_splat_spec("value", default_half_length=4.0),
+                      4)}
+    for k in ("gauss", "rect"):
+        specs[k][0].type = pcr.ReductionType.Average
+    t_sizes = time.perf_counter()
+    for w_, h_ in grid_sizes.SIZES:
+        gc = grid_sizes.grid_config(w_, h_)
+        c = grid_sizes.make_cloud(w_, h_, points)
+        for kind, (spec, r) in specs.items():
+            label = f"{w_}x{h_} {points} {kind}"
+            (_, (g,), wall), _, launches = on_card(
+                label, lambda: run_pipeline(pcr, gc, [spec], c, GPU),
+                [kind])
+            _, (o,), ow = run_pipeline(pcr, gc, [spec], c, CPU)
+            if kind == "point":
+                check(np.array_equal(g, o, equal_nan=True),
+                      f"(q) {label}: Count differs from CPU mode")
+                check(float(np.nansum(g)) == points,
+                      f"(q) {label}: Count sums {np.nansum(g)}")
+                err, extra = 0.0, ""
+            else:
+                rtol, terms = cell_rtol(gc, c.x_array(), c.y_array(), r)
+                check(np.array_equal(np.isnan(g), np.isnan(o)),
+                      f"(q) {label}: NaN footprints differ")
+                m = ~np.isnan(o)
+                diff = np.abs(g[m] - o[m])
+                check(bool((diff <= rtol[m] + rtol[m] * np.abs(o[m])).all()),
+                      f"(q) {label}: over 1e-5 / gauss_rtol of a cell's "
+                      f"terms (max |diff| {float(diff.max())})")
+                err = float(diff.max()) if m.any() else 0.0
+                extra = (f" most terms in a cell {int(terms.max())}, "
+                         f"rtol there {float(rtol.max()):.3g}")
+            print(f"(q) {label}: card {wall['ingest'] + wall['finalize']:.4f}s"
+                  f" launches={launches} CPU {ow['ingest']:.4f}s "
+                  f"max_abs_err={err!r}{extra}")
+    print(f"(q) the eight sizes x 3 glyphs took "
+          f"{time.perf_counter() - t_sizes:.1f}s")
+
+    # quick validation's sections 3 (a process of its own) and 4
+    check(quick_validation.section_quickstart(),
+          "(q) quick validation: the quickstart failed")
+    ok, w, launches = on_card("ladder", quick_validation.section_ladder,
+                              ["point"])
+    check(ok, "(q) quick validation: the ladder failed")
+    print(f"(q) quick validation sections 1, 3, 4 passed; ladder "
+          f"launches={launches}")
     return total
 
 
@@ -2357,11 +2547,16 @@ def main() -> int:
         t_p = time.perf_counter()
         p_out = phase_p(torch, pcr, kernels, gauss_kernels, lk, tmp)
         print(f"(p) took {time.perf_counter() - t_p:.1f}s")
-        launches += p_out["point"]
-        l_gauss += p_out["gauss"]
-        l_rot["rot"] += p_out["rot"]
-        l_rotp["rotp"] += p_out["rotp"]
-        l_rect += p_out["rect"]
+        # (q) the diagnostics and the quick validation
+        t_q = time.perf_counter()
+        q_out = phase_q(torch, pcr, kernels, gauss_kernels, lk)
+        print(f"(q) took {time.perf_counter() - t_q:.1f}s")
+        for out in (p_out, q_out):
+            launches += out["point"]
+            l_gauss += out["gauss"]
+            l_rot["rot"] += out["rot"]
+            l_rotp["rotp"] += out["rotp"]
+            l_rect += out["rect"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

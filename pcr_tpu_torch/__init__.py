@@ -59,14 +59,16 @@ The user entry points run with `python -m`: the examples
 (`pcr_tpu_torch.examples.quickstart`, `glyph_splatting`,
 `streaming_resume`, `custom_reduction`, `smiley_face`, `multichip`) and
 the scripts (`pcr_tpu_torch.scripts.run_lidar_pipeline`, the streaming
-LiDAR harness, and `generate_glyph_patterns` + `compare_patterns`, the
-CPU <-> device pattern pair).
+LiDAR harness, `generate_glyph_patterns` + `compare_patterns`, the
+CPU <-> device pattern pair, and `quick_validation`), and the diagnostics
+(`pcr_tpu_torch.scripts.diagnostics.device_health`, `grid_sizes`,
+`boundary_points`, `transfer_sizes`), which exit 2 without a card.
 
 Accepted and ignored, for compatibility: `gpu_pool_size_bytes` and
 `use_cuda_streams`.
 """
 
-__version__ = "0.9.0"   # the port's own version, not pcr_tpu's
+__version__ = "0.10.0"   # the port's own version, not pcr_tpu's
 
 from .core.device import (
     cuda_device_available,

@@ -1094,3 +1094,168 @@ def test_far_from_the_origin_k4_k5_hold_the_oracle(card, glyph, tall,
     far, near = float(err[-384:].max()), float(err[:384].max())
     assert far <= TOL and near <= TOL, (far, near)
     assert far <= 1.5 * near + 1e-7, (far, near)
+
+
+def card_and_cpu(gc, specs, clouds, device_cloud=False, **cfg):
+    """{mode: pipeline} of GPU mode on the card (strict) and CPU mode, each
+    fed `clouds` in turn; a Device-located cloud where device_cloud."""
+    out = {}
+    for mode in (pcr.ExecutionMode.GPU, pcr.ExecutionMode.CPU):
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=specs, exec_mode=mode,
+            gpu_require_strict=True, **cfg))
+        if mode == pcr.ExecutionMode.GPU:
+            assert p._engine.device.type == "cuda"
+        for c in clouds:
+            p.ingest(c.to_device() if device_cloud else c)
+        p.finalize()
+        out[mode] = p
+    return out
+
+
+def card_vs_cpu(pipes, exact=()):
+    g, o = (pipes[m].result() for m in (pcr.ExecutionMode.GPU,
+                                        pcr.ExecutionMode.CPU))
+    for i in range(g.num_bands()):
+        a, b = g.band_array(i), o.band_array(i)
+        assert np.array_equal(np.isnan(a), np.isnan(b)), i
+        if i in exact:
+            assert np.array_equal(a, b, equal_nan=True), i
+        else:
+            np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL)
+
+
+def test_percentile_and_median_on_the_card(card, monkeypatch):
+    """Percentile 0.9 + Median + Average + Max in one pipeline over two
+    clouds: the order statistics (collected on the host beside the card's
+    state) exactly the CPU mode's, Average within 1e-5."""
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    gc = make_grid_config(w=300.0, h=200.0, tile=128)
+    pct = pcr.ReductionSpec(value_channel="v", type=RT.Percentile)
+    pct.percentile = 0.9
+    specs = [pct, pcr.ReductionSpec(value_channel="v", type=RT.Median),
+             pcr.ReductionSpec(value_channel="v", type=RT.Average),
+             pcr.ReductionSpec(value_channel="v", type=RT.Max)]
+    clouds = [make_cloud(60_000, seed=s, w=300.0, h=200.0) for s in (7, 8)]
+    before = kernels.sorted_splat_point.launches
+    card_vs_cpu(card_and_cpu(gc, specs, clouds), exact=(0, 1, 3))
+    assert kernels.sorted_splat_point.launches > before
+
+
+FILTERED = {
+    "point": lambda: pcr.ReductionSpec(value_channel="v", type=RT.Average),
+    "gauss": lambda: pcr.gaussian_splat_spec("v", default_sigma=2.0),
+    "line": lambda: pcr.line_splat_spec("v", default_direction=0.7,
+                                        default_half_length=4.0),
+}
+
+
+@pytest.mark.parametrize("glyph", list(FILTERED))
+def test_filtered_spec_on_the_card(card, glyph, monkeypatch):
+    """A FilterSpec on "ts" (ts > 20 and ts <= 40) on each glyph's card
+    path, against CPU mode at 1e-5 (positive values), and not the
+    unfiltered band."""
+    from pcr_tpu_torch.engine import line_kernels as lk
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    gc = make_grid_config(w=300.0, h=200.0, tile=128)
+    c = positive_cloud(80_000, 9, 300.0, 200.0)
+    filt = (pcr.FilterSpec().add("ts", pcr.CompareOp.Greater, 20.0)
+            .add("ts", pcr.CompareOp.LessEqual, 40.0))
+    kern = {"point": kernels.sorted_splat_point,
+            "gauss": gk.sorted_splat_gauss, "line": lk.rect_splat}[glyph]
+    before = kern.launches
+    pipes = card_and_cpu(gc, [FILTERED[glyph]()], [c], filter=filt)
+    assert kern.launches > before
+    card_vs_cpu(pipes)
+    whole = card_and_cpu(gc, [FILTERED[glyph]()], [c])
+    assert not np.array_equal(
+        pipes[pcr.ExecutionMode.GPU].result().band_array(0),
+        whole[pcr.ExecutionMode.GPU].result().band_array(0), equal_nan=True)
+
+
+def test_device_cloud_staged_once_on_the_card(card, monkeypatch):
+    """A Device-located cloud ingested twice is staged once (Pipeline.stage
+    counted) and its band is CPU mode's over the cloud twice."""
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    gc = make_grid_config(w=300.0, h=200.0, tile=128)
+    dcloud = make_cloud(100_000, seed=10, w=300.0, h=200.0).to_device()
+    stage = pcr.Pipeline.stage
+    staged = []
+    monkeypatch.setattr(pcr.Pipeline, "stage", lambda self, c: (
+        staged.append(c), stage(self, c))[1])
+    specs = [pcr.ReductionSpec(value_channel="v", type=RT.Sum)]
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=specs, exec_mode=pcr.ExecutionMode.GPU,
+        gpu_require_strict=True))
+    p.ingest(dcloud)
+    p.ingest(dcloud)
+    p.finalize()
+    assert len(staged) == 1 and len(p._device_cloud_cache) == 1
+    o = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=specs, exec_mode=pcr.ExecutionMode.CPU))
+    o.ingest(dcloud.to_host())
+    o.ingest(dcloud.to_host())
+    o.finalize()
+    card_vs_cpu({pcr.ExecutionMode.GPU: p, pcr.ExecutionMode.CPU: o})
+
+
+def test_strip_finalize_geotiff_on_the_card(card, monkeypatch, tmp_path):
+    """The strip finalize (PCR_PACK_MAX_BYTES=1) streaming its GeoTIFF:
+    Count + Max write the bytes CPU mode writes; an Average's file is the
+    bytes write_geotiff makes of the card's band, which is within 1e-5 of
+    CPU mode's."""
+    from pcr_tpu_torch.io.geotiff import write_geotiff
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
+    gc = make_grid_config(w=700.0, h=600.0, tile=256)
+    c = make_cloud(200_000, seed=11, w=500.0, h=600.0)   # a column idle
+    for name, specs, exact in (
+            ("exact", [pcr.ReductionSpec(value_channel="v", type=RT.Count),
+                       pcr.ReductionSpec(value_channel="v", type=RT.Max)],
+             True),
+            ("avg", [pcr.ReductionSpec(value_channel="v",
+                                       type=RT.Average)], False)):
+        out, pipes = {}, {}
+        for mode in (pcr.ExecutionMode.GPU, pcr.ExecutionMode.CPU):
+            out[mode] = str(tmp_path / f"{name}_{mode.name}.tif")
+            p = pcr.Pipeline.create(pcr.PipelineConfig(
+                grid=gc, reductions=specs, exec_mode=mode,
+                gpu_require_strict=True, output_path=out[mode]))
+            p.ingest(c)
+            p.finalize()
+            pipes[mode] = p
+        assert pipes[pcr.ExecutionMode.GPU]._engine.device.type == "cuda"
+        card_vs_cpu(pipes, exact=range(len(specs)) if exact else ())
+        files = {m: read_bytes(path) for m, path in out.items()}
+        if exact:
+            assert files[pcr.ExecutionMode.GPU] == files[pcr.ExecutionMode.CPU]
+        else:
+            card_p = pipes[pcr.ExecutionMode.GPU]
+            again = str(tmp_path / "again.tif")
+            assert write_geotiff(again, card_p.result(), gc,
+                                 card_p._geotiff_opts()).ok()
+            assert files[pcr.ExecutionMode.GPU] == read_bytes(again)
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("w,h", [(1, 1), (7, 3), (1, 4096), (4096, 1),
+                                 (3001, 1999)])
+def test_degenerate_grids_count_on_the_card(card, w, h, monkeypatch):
+    """grid_sizes' degenerate shapes (K1's 64-row slices and the tile
+    padding on one-cell and one-row grids): Count of 100k points on the
+    card, cell for cell CPU mode's, summing to 100k."""
+    from pcr_tpu_torch.scripts.diagnostics import grid_sizes
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    gc = grid_sizes.grid_config(w, h)
+    c = grid_sizes.make_cloud(w, h, 100_000)
+    before = kernels.sorted_splat_point.launches
+    pipes = card_and_cpu(gc, [pcr.ReductionSpec(value_channel="value",
+                                                type=RT.Count)], [c])
+    assert kernels.sorted_splat_point.launches > before
+    card_vs_cpu(pipes, exact=(0,))
+    assert np.nansum(pipes[pcr.ExecutionMode.GPU].result()
+                     .band_array(0)) == 100_000

@@ -27,10 +27,13 @@ SOURCES = sorted(
               recursive=True)) + ["chip_smoke.py"]
 
 
+DIAGNOSTICS = [f"pcr_tpu_torch.scripts.diagnostics.{m}" for m in (
+    "device_health", "grid_sizes", "boundary_points", "transfer_sizes")]
 ENTRY_POINTS = [f"pcr_tpu_torch.examples.{m}" for m in (
     "quickstart", "glyph_splatting", "streaming_resume", "custom_reduction",
     "smiley_face", "multichip")] + [f"pcr_tpu_torch.scripts.{m}" for m in (
-        "run_lidar_pipeline", "generate_glyph_patterns", "compare_patterns")]
+        "run_lidar_pipeline", "generate_glyph_patterns", "compare_patterns",
+        "quick_validation")] + DIAGNOSTICS
 
 
 def banned_imports(source: str, path: str = "<src>") -> list[str]:
@@ -67,6 +70,7 @@ def test_the_sources_are_found():
         assert f"pcr_tpu_torch/{new}" in SOURCES
     for entry in ENTRY_POINTS:
         assert entry.replace(".", "/") + ".py" in SOURCES
+    assert "pcr_tpu_torch/scripts/diagnostics/__init__.py" in SOURCES
     assert len(SOURCES) > 40
 
 
@@ -175,3 +179,37 @@ def test_an_install_ships_every_kernel_source():
         assert any(fnmatch.fnmatch(rel, os.path.join("pcr_tpu_torch", p))
                    for p in wheel), rel
         assert any(fnmatch.fnmatch(rel, p) for p in sdist), rel
+
+
+DIAGNOSTICS_RUN = textwrap.dedent("""
+    import contextlib, io, runpy, sys
+    for name in ("jax", "pcr_tpu", "pcr"):
+        sys.modules[name] = None       # any import of them now raises
+    for mod, args in (("grid_sizes", ["--mode", "GPU", "--points", "2000"]),
+                      ("boundary_points", []), ("device_health", [])):
+        mod = "pcr_tpu_torch.scripts.diagnostics." + mod
+        sys.argv = [mod, *args]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                runpy.run_module(mod, run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, (mod, e.code, out.getvalue())
+        text = out.getvalue()
+        print(mod, "ok" if "PASS" in text or "(K1):  OK" in text else "bad")
+""")
+
+
+def test_diagnostics_run_with_the_jax_package_blocked():
+    """`python -m` of grid_sizes (GPU mode), boundary_points and
+    device_health on the tests' stand-in for the card, with jax, pcr_tpu
+    and pcr blocked: each exits 0, the first two with PASS, the last with
+    its K1 smoke test OK."""
+    env = dict(os.environ, PCR_TORCH_DEVICE="cpu",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", DIAGNOSTICS_RUN], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split() == [
+        w for m in ("grid_sizes", "boundary_points", "device_health")
+        for w in (f"pcr_tpu_torch.scripts.diagnostics.{m}", "ok")]
