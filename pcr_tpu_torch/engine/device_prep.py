@@ -25,9 +25,15 @@ Everything here is a plain function on tensors of one device, the card's
 or (under PCR_TORCH_DEVICE=cpu) the CPU's. Every step is a stable sort, an
 integer prefix sum, an integer count, `repeat_interleave`, a gather, or a
 scatter to distinct addresses: no float is added anywhere, so a rerun
-gives the same bytes. The sizes that shape a tensor come back to the host
-(`int(...)`): two synchronisations a Gaussian or Line chunk (entries,
-sub-chunks) and one a Point chunk.
+gives the same bytes. The sizes that shape a tensor come back to the host:
+two synchronisations a Gaussian or Line chunk (entries, sub-chunks) and one
+a Point chunk.
+
+Every host synchronisation of the device route goes through `sync`: the
+two sizes here (`halo_expand`'s entries, `device_layout`'s sub-chunks),
+the arena's wait for a buffer's last upload (torch_backend._Arena.checkout)
+and TorchEngine.block_until_ready. Its span "sync" and counter "syncs"
+(utils/profiling.py) therefore see them all.
 """
 
 from __future__ import annotations
@@ -37,11 +43,12 @@ import contextlib
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .kernels import BLOCK
 
 __all__ = ["DEAD16", "pack16", "unpack16", "halo_expand", "device_layout",
            "point_entries", "gauss_entries", "gauss_finish", "rotp_finish",
-           "line_runs_device", "line_finish", "timeline", "mark"]
+           "line_runs_device", "line_finish", "timeline", "mark", "sync"]
 
 DEAD16 = -32768    # the int16 that marks an invalid line (iy0)
 
@@ -69,6 +76,22 @@ def mark(name: str, device) -> None:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         _marks.append((name, ev))
+
+
+def sync(x):
+    """Block the host on the device: the value of the one-element tensor
+    `x` as an int, or the wait for an event (`x.synchronize()`) or for a
+    whole torch.device. The span "sync" and the counter "syncs" record
+    each call."""
+    with profiling.span("sync"):
+        profiling.count("syncs")
+        if isinstance(x, torch.Tensor):
+            return int(x)
+        if isinstance(x, torch.device):
+            torch.cuda.synchronize(x)
+        else:
+            x.synchronize()
+        return None
 
 
 def pack16(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
@@ -107,7 +130,7 @@ def halo_expand(rb0, rb1, cb0, cb1, ncb: int):
     dev = rb0.device
     kc = (cb1 - cb0 + 1).clamp(min=0)
     k = (rb1 - rb0 + 1).clamp(min=0) * kc
-    total = int(k.sum())
+    total = sync(k.sum())
     idx = torch.repeat_interleave(
         torch.arange(k.numel(), device=dev), k, output_size=total)
     o = torch.arange(total, device=dev) - (torch.cumsum(k, 0) - k)[idx]
@@ -132,7 +155,7 @@ def device_layout(eb, planes, nblocks: int, fills, idx=None):
     nseg = len(planes)
     counts = torch.bincount(eb, minlength=nblocks)
     subs = _fdiv(counts + (BLOCK - 1), BLOCK)
-    total = int(subs.sum())
+    total = sync(subs.sum())
     nsub = max(total, 1)
     mark("sort0", dev)
     tile, order = torch.sort(eb, stable=True)

@@ -52,6 +52,12 @@ driving them all (parallel/engine.py: ShardedTorchEngine for a one-tile
 grid, PartitionedTorchEngine for a tiled one), each shard on the same
 kernels; a `gpu_memory_budget` beside a mesh is an InvalidArgument.
 
+Spans (utils/profiling.py, recorded only under a torch profiler): "ingest"
+once a public `ingest` call, "ingest.route" around routing.assign,
+"ingest.tiles" around the touched-tile tracking, "finalize" once a
+`finalize` call and "finalize.mask" around the band's allocation and the
+touched-tile masking; the engine opens the rest (engine/torch_backend.py).
+
 Differences from the reference, by design (as in pcr_tpu):
   * Multi-reduction ingest shares one world→cell assignment per cloud
     instead of re-routing per reduction (pipeline.cpp:360-743 re-sorts per
@@ -93,6 +99,7 @@ from ..core.types import (
 )
 from ..io import tile_state_io
 from ..ops.reduction import get_reduction_info
+from ..utils import profiling
 from . import cpu_backend as cpu
 from . import routing
 from .filter import FilterSpec, evaluate_filter_mask
@@ -535,6 +542,10 @@ class Pipeline:
         Raises PcrError on invalid input or user cancellation
         (reference: pipeline.cpp:283-770).
         """
+        with profiling.span("ingest"):
+            self._ingest(cloud)
+
+    def _ingest(self, cloud) -> None:
         if self._cancelled:
             raise PcrError(Status.error(StatusCode.InvalidArgument,
                                         "pipeline: cancelled by user"))
@@ -550,7 +561,7 @@ class Pipeline:
                 import weakref
                 cached = (weakref.ref(cloud), self.stage(cloud.to_host()))
                 self._device_cloud_cache[id(cloud)] = cached
-            return self.ingest(cached[1])
+            return self._ingest(cached[1])
         if isinstance(cloud, StagedCloud):
             for i in range(len(self._plans)):
                 staged = cloud.per_spec[i]
@@ -586,7 +597,8 @@ class Pipeline:
             keep = None
 
         # One shared assignment for all reductions
-        col, row, valid = routing.assign(self.config.grid, x, y)
+        with profiling.span("ingest.route"):
+            col, row, valid = routing.assign(self.config.grid, x, y)
         if keep is not None:
             valid = valid & keep
 
@@ -873,7 +885,8 @@ class Pipeline:
         return [(int(ti) // cfg.tiles_x, int(ti) % cfg.tiles_x) for ti in t]
 
     def _track_tiles(self, col, row, valid=None):
-        self._touched_tiles.update(self._tiles_of(col, row, valid))
+        with profiling.span("ingest.tiles"):
+            self._touched_tiles.update(self._tiles_of(col, row, valid))
 
     def _emit_progress(self):
         if self._progress_cb is None:
@@ -889,6 +902,10 @@ class Pipeline:
     def finalize(self) -> None:
         """Flush tile state, assemble the result Grid, write GeoTIFF output
         (reference: pipeline.cpp:1154-1363)."""
+        with profiling.span("finalize"):
+            self._finalize()
+
+    def _finalize(self) -> None:
         if self._backend == _DEVICE:
             # Small grids finalize in one device pass and one copy to the
             # host (_finalize_packed); large grids stream row strips with
@@ -1045,16 +1062,17 @@ class Pipeline:
                     full = full.copy()   # Sum finalize returns state itself
             else:
                 full = host[0]
-            if all_touched:
-                band = np.ascontiguousarray(full, dtype=np.float32)
-            else:
-                band = np.full((cfg.height, cfg.width), np.nan,
-                               dtype=np.float32)
-                for (trow, tcol) in self._touched_tiles:
-                    cs, rs, cc, rc = cfg.tile_cell_range(
-                        TileIndex(row=trow, col=tcol))
-                    band[rs:rs + rc, cs:cs + cc] = full[rs:rs + rc,
-                                                        cs:cs + cc]
+            with profiling.span("finalize.mask"):
+                if all_touched:
+                    band = np.ascontiguousarray(full, dtype=np.float32)
+                else:
+                    band = np.full((cfg.height, cfg.width), np.nan,
+                                   dtype=np.float32)
+                    for (trow, tcol) in self._touched_tiles:
+                        cs, rs, cc, rc = cfg.tile_cell_range(
+                            TileIndex(row=trow, col=tcol))
+                        band[rs:rs + rc, cs:cs + cc] = full[rs:rs + rc,
+                                                            cs:cs + cc]
             grid.set_band_array(i, band, copy=False)
         self._result = grid
         self._finalized = True
@@ -1104,10 +1122,12 @@ class Pipeline:
                     rows = (cfg.height + 1) // 2
                 strips = eng.finalize_strips(i, min(rows, cfg.height),
                                              with_state=need_state)
-                band = (np.empty((cfg.height, cfg.width), dtype=np.float32)
-                        if all_touched else
-                        np.full((cfg.height, cfg.width), np.nan,
-                                dtype=np.float32))
+                with profiling.span("finalize.mask"):
+                    band = (np.empty((cfg.height, cfg.width),
+                                     dtype=np.float32)
+                            if all_touched else
+                            np.full((cfg.height, cfg.width), np.nan,
+                                    dtype=np.float32))
                 fields = ([np.empty((cfg.height, cfg.width), np.float32)
                            for _ in range(info.state_floats)]
                           if need_state else None)
@@ -1121,7 +1141,8 @@ class Pipeline:
                             dtype=np.float32)
                     else:
                         fin = host
-                    self._mask_strip(band, fin, r0, r1)
+                    with profiling.span("finalize.mask"):
+                        self._mask_strip(band, fin, r0, r1)
                     if writer is not None:
                         futures.append(ex.submit(writer.write_rows,
                                                  band[r0:r1]))

@@ -10,6 +10,24 @@ an optional torch.profiler trace context for device timelines.
 The port's copy of pcr_tpu/utils/profiling.py: PhaseTimer as it is, and
 `trace` on torch.profiler (with an NVTX range on a CUDA card) where
 pcr_tpu's uses jax.profiler.
+
+The port's own spans and counters (`span`, `count`, `device_span`,
+`snapshot`): the engine opens a span around each part of an ingest and a
+finalize and counts bytes and host synchronisations where they happen.
+They record only while a torch profiler records
+(`torch.profiler.profile`, `trace` below, or
+`torch.autograd.profiler.emit_nvtx` under Nsight Systems): a span is then a
+`record_function` range named "pcr.<name>", on the profiler's clock in the
+same trace as the kernels and copies, and its host seconds (total and
+self: less the spans nested in it on the same thread) go into one
+process-wide table that `snapshot` reads. Otherwise a span is one flag
+check and a shared object that does nothing.
+
+The switch is the flag torch keeps for such checks
+(`torch.autograd.profiler._is_profiler_enabled`), which every thread
+reads, so the spans of Hybrid mode's worker threads go into the table too.
+torch's profiler traces only the thread that started it: those spans do
+not show in its trace.
 """
 
 from __future__ import annotations
@@ -17,11 +35,18 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 
-__all__ = ["PhaseTimer", "trace"]
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+__all__ = ["PhaseTimer", "trace", "span", "count", "device_span",
+           "snapshot", "reset"]
+
+PREFIX = "pcr."     # the port's spans in a trace
 
 
 @dataclass
@@ -73,13 +98,13 @@ def trace(log_dir: str | None = None, name: str = "pcr_tpu_torch"):
     """Optional device trace via torch.profiler: the block's host and (on
     a CUDA card) device activity, written as a Chrome trace JSON file into
     `log_dir` (view with Perfetto or chrome://tracing). On a card the block
-    is also one NVTX range `name`, for external timelines. Yields the
-    profiler (its key_averages() sum the block's operators), or None and
-    records nothing when log_dir is None."""
+    is also one NVTX range `name`, for external timelines. The port's spans
+    record inside the block (the "pcr." ranges of the trace, and
+    `snapshot`). Yields the profiler (its key_averages() sum the block's
+    operators), or None and records nothing when log_dir is None."""
     if not log_dir:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
@@ -97,3 +122,152 @@ def trace(log_dir: str | None = None, name: str = "pcr_tpu_torch"):
                 torch.cuda.nvtx.range_pop()
     prof.export_chrome_trace(os.path.join(
         log_dir, f"{name}_{os.getpid()}_{time.time_ns()}.json"))
+
+
+# -- the port's spans and counters --------------------------------------------
+
+_lock = threading.Lock()
+_local = threading.local()      # .stack: this thread's open spans
+_spans: dict = {}               # name -> [total ns, self ns, calls]
+_counters: dict = {}            # name -> int
+_device_ms: dict = {}           # name -> CUDA-event ms, resolved
+_pending: list = []             # (name, start event, end event)
+
+
+def _recording() -> bool:
+    """Whether a torch profiler records, on any thread."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Off:
+    """The span of a block nothing records: enter and exit do nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "range", "t0", "child")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = torch.profiler.record_function(PREFIX + name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        stack.append(self)
+        self.child = 0
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        stack = _local.stack
+        stack.pop()
+        if stack:
+            stack[-1].child += dt
+        with _lock:
+            rec = _spans.get(self.name)
+            if rec is None:
+                rec = _spans[self.name] = [0, 0, 0]
+            rec[0] += dt
+            rec[1] += dt - self.child
+            rec[2] += 1
+        return self.range.__exit__(*exc)
+
+
+def span(name: str):
+    """A context manager: while a torch profiler records, the block is the
+    range "pcr.<name>" in its trace and adds its host seconds to `name`'s
+    row of the table; otherwise it does nothing."""
+    if not _recording():
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name`, while a torch profiler records."""
+    if _recording():
+        with _lock:
+            _counters[name] = _counters.get(name, 0) + int(n)
+
+
+class _DeviceSpan:
+    __slots__ = ("name", "stream", "start")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.stream = torch.cuda.current_stream(device)
+
+    def __enter__(self):
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(self.stream)
+        with _lock:
+            _pending.append((self.name, self.start, end))
+            _resolve(wait=False)
+        return False
+
+
+def device_span(name: str, device):
+    """A context manager: while a torch profiler records and `device` is a
+    CUDA device, CUDA events on its current stream around the block, whose
+    elapsed time goes into `name`'s device seconds. The time is read off
+    the events once they have completed (at the next device span, or by
+    `snapshot`), so the block waits for nothing."""
+    if not _recording() or torch.device(device).type != "cuda":
+        return _OFF
+    return _DeviceSpan(name, device)
+
+
+def _resolve(wait: bool) -> None:
+    """Fold the completed device spans into the table (all of them, after
+    waiting, with `wait`). Called with _lock held."""
+    keep = []
+    for name, start, end in _pending:
+        if wait:
+            end.synchronize()
+        elif not end.query():
+            keep.append((name, start, end))
+            continue
+        _device_ms[name] = _device_ms.get(name, 0.0) + start.elapsed_time(end)
+    _pending[:] = keep
+
+
+def snapshot() -> dict:
+    """The table since the process started (or the last `reset`), counting
+    only blocks run while a profiler recorded: {"spans": {name: {"s",
+    "self_s", "n", "device_s"}}, "counters": {name: int}}. `device_s` is
+    None for a span with no device span of its name."""
+    with _lock:
+        _resolve(wait=True)
+        spans = {}
+        for name in set(_spans) | set(_device_ms):
+            total, own, n = _spans.get(name, (0, 0, 0))
+            dev = _device_ms.get(name)
+            spans[name] = {"s": total / 1e9, "self_s": own / 1e9, "n": n,
+                           "device_s": None if dev is None else dev / 1e3}
+        return {"spans": spans, "counters": dict(_counters)}
+
+
+def reset() -> None:
+    """Empty the table (for tests)."""
+    with _lock:
+        _spans.clear()
+        _counters.clear()
+        _device_ms.clear()
+        _pending.clear()

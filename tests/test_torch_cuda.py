@@ -1259,3 +1259,37 @@ def test_degenerate_grids_count_on_the_card(card, w, h, monkeypatch):
     card_vs_cpu(pipes, exact=(0,))
     assert np.nansum(pipes[pcr.ExecutionMode.GPU].result()
                      .band_array(0)) == 100_000
+
+
+@pytest.mark.parametrize("strips", [False, True])
+def test_the_ports_spans_time_the_finalize_copy_on_the_card(card, strips,
+                                                            monkeypatch):
+    """Under torch.profiler the finalize's copy to the host gets device
+    seconds from its CUDA events (resolved by snapshot) and its bytes are
+    the band's; the upload's bytes are the wire's, 8 B a point; and the
+    layout's size is one synchronisation, the only one of a first call."""
+    from pcr_tpu_torch.utils import profiling
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    if strips:
+        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
+    gc = make_grid_config(w=1000.0, h=1000.0)
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=[pcr.ReductionSpec(value_channel="v",
+                                               type=RT.Average)],
+        exec_mode=pcr.ExecutionMode.GPU))
+    profiling.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        p.ingest(make_cloud(200_000, 1, 1000, 1000))
+        p.finalize()
+    snap = profiling.snapshot()
+    profiling.reset()
+    d2h = snap["spans"]["finalize.d2h"]
+    assert d2h["n"] == 1
+    assert 0 < d2h["device_s"] < d2h["s"] + 1e-3
+    assert snap["counters"]["d2h_bytes"] == 1000 * 1000 * 4
+    assert snap["counters"]["h2d_bytes"] == 200_000 * 8
+    assert snap["counters"]["syncs"] == 1
+    assert snap["spans"]["sync"]["n"] == 1
+    assert snap["spans"]["ingest"]["n"] == 1

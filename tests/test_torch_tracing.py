@@ -1,0 +1,246 @@
+"""The port's spans and counters (pcr_tpu_torch.utils.profiling) on its
+device path on torch-CPU (PCR_TORCH_DEVICE=cpu).
+
+Without a profiler nothing records. Under torch.profiler every span is a
+"pcr." range nested in the caller's own range, on the profiler's clock;
+`ingest` counts once a public call; a span's self time is the rest of its
+seconds once its children's are taken out; the layout synchronises once a
+Point chunk and twice a Gaussian or Line chunk; the arena's wait counts
+once a reused buffer; `d2h_bytes` are the band's bytes; Hybrid workers
+leave no self time negative; and the bands do not change under the
+profiler.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pcr_tpu_torch as pcr
+from pcr_tpu_torch.engine.torch_backend import _Arena, _HostBuf
+from pcr_tpu_torch.utils import profiling
+
+# the first multi-threaded float32 exp of a process can read up to 1e-4
+# off every later call (tests/test_torch_pipeline.py); spend it here
+torch.exp(torch.linspace(-20.0, 0.0, 1 << 20))
+
+RT = pcr.ReductionType
+CPU_SPANS = {"ingest", "ingest.route", "ingest.buffer", "ingest.pack",
+             "ingest.upload", "ingest.layout", "sync", "ingest.commit",
+             "ingest.tiles", "finalize", "finalize.device", "finalize.d2h",
+             "finalize.mask"}
+W, H = 300, 200
+
+
+@pytest.fixture(autouse=True)
+def on_cpu(monkeypatch):
+    monkeypatch.setenv("PCR_TORCH_DEVICE", "cpu")
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+def grid(tile=128):
+    b = pcr.BBox()
+    b.min_x, b.min_y, b.max_x, b.max_y = 0.0, 0.0, float(W), float(H)
+    gc = pcr.GridConfig(bounds=b, cell_size_x=1.0, cell_size_y=-1.0,
+                        tile_width=tile, tile_height=tile,
+                        crs=pcr.CRS.from_epsg(3857))
+    gc.compute_dimensions()
+    return gc
+
+
+def cloud(n=20000, seed=0):
+    rng = np.random.default_rng(seed)
+    c = pcr.PointCloud.create(n)
+    c.set_x_array(rng.uniform(0, W, n))
+    c.set_y_array(rng.uniform(0, 0.8 * H, n))   # a tile row left untouched
+    c.add_channel("v", pcr.DataType.Float32)
+    c.set_channel_array_f32("v", rng.uniform(0, 1, n).astype(np.float32))
+    c.set_crs(pcr.CRS.from_epsg(3857))
+    return c
+
+
+GLYPHS = {
+    "point": pcr.GlyphSpec(),
+    "gaussian": pcr.GlyphSpec(type=pcr.GlyphType.Gaussian,
+                              default_sigma_x=2.0, default_sigma_y=2.0),
+    "line": pcr.GlyphSpec(type=pcr.GlyphType.Line, default_half_length=3.0,
+                          default_direction=0.6),
+}
+
+
+def pipeline(glyph="point", **cfg):
+    c = pcr.PipelineConfig()
+    c.grid = grid()
+    c.reductions = [pcr.ReductionSpec(value_channel="v", type=RT.Average,
+                                      glyph=GLYPHS[glyph])]
+    c.exec_mode = pcr.ExecutionMode.GPU
+    for k, v in cfg.items():
+        setattr(c, k, v)
+    return pcr.Pipeline.create(c)
+
+
+def job(glyph="point", calls=2, **cfg):
+    """A whole job of `calls` host clouds; its band."""
+    p = pipeline(glyph, **cfg)
+    for s in range(calls):
+        p.ingest(cloud(seed=s))
+    p.finalize()
+    return p.result().band_array(0)
+
+
+def profiled(fn, *args, **kw):
+    """fn(...) under torch.profiler; (its result, the profiler)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn(*args, **kw)
+    return out, prof
+
+
+@pytest.mark.parametrize("glyph", ["point", "gaussian"])
+def test_nothing_records_without_a_profiler(glyph):
+    before = profiling.snapshot()
+    job(glyph)
+    assert profiling.snapshot() == before == {"spans": {}, "counters": {}}
+    assert profiling.span("ingest") is profiling.span("finalize")
+    assert profiling.device_span("x", torch.device("cpu")) is \
+        profiling.span("x")
+
+
+@pytest.mark.parametrize("glyph", ["point", "gaussian"])
+def test_the_bands_are_the_same_under_the_profiler(glyph):
+    off = job(glyph)
+    on, _ = profiled(job, glyph)
+    assert np.array_equal(off.view(np.int32), on.view(np.int32))
+    assert profiling.snapshot()["spans"]["ingest"]["n"] == 2
+
+
+def test_spans_are_ranges_inside_the_callers_own():
+    def traced():
+        with torch.profiler.record_function("caller"):
+            job()
+    _, prof = profiled(traced)
+    ranges = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.is_user_annotation()]
+    (caller,) = [r for r in ranges if r[0] == "caller"]
+    ours = [r for r in ranges if r[0].startswith(profiling.PREFIX)]
+    assert {n[len(profiling.PREFIX):] for n, _, _ in ours} == CPU_SPANS
+    for _, start, end in ours:
+        assert caller[1] <= start <= end <= caller[2]
+    # each child inside one of its parent's ranges, on the same clock
+    parents = {"ingest.route": "ingest", "ingest.commit": "ingest",
+               "sync": "ingest.layout", "finalize.d2h": "finalize"}
+    for child, parent in parents.items():
+        outer = [(s, e) for n, s, e in ours if n == profiling.PREFIX + parent]
+        for n, s, e in ours:
+            if n == profiling.PREFIX + child:
+                assert any(a <= s <= e <= b for a, b in outer), child
+    spans = profiling.snapshot()["spans"]
+    for name in CPU_SPANS:
+        assert spans[name]["n"] == sum(
+            n == profiling.PREFIX + name for n, _, _ in ours)
+
+
+def test_ingest_counts_once_a_public_call():
+    def calls():
+        p = pipeline()
+        p.ingest(cloud(seed=1))
+        dev = cloud(seed=2).to_device()
+        p.ingest(dev)                       # staged once, then ingested
+        p.ingest(dev)                       # from the pipeline's cache
+        p.ingest(p.stage(cloud(seed=3)))
+        p.finalize()
+    profiled(calls)
+    spans = profiling.snapshot()["spans"]
+    assert spans["ingest"]["n"] == 4
+    assert spans["ingest.commit"]["n"] == 4
+    assert spans["ingest.route"]["n"] == 1    # host clouds alone route
+    assert spans["finalize"]["n"] == 1
+
+
+def test_self_time_is_what_the_children_leave():
+    profiled(job)
+    spans = profiling.snapshot()["spans"]
+    tree = {"ingest": ["ingest.route", "ingest.buffer", "ingest.pack",
+                       "ingest.upload", "ingest.layout", "ingest.commit",
+                       "ingest.tiles"],
+            "ingest.layout": ["sync"],
+            "finalize": ["finalize.device", "finalize.d2h",
+                         "finalize.mask"]}
+    for parent, children in tree.items():
+        got = spans[parent]["self_s"] + sum(spans[c]["s"] for c in children)
+        assert got == pytest.approx(spans[parent]["s"], rel=1e-9, abs=1e-9)
+        assert spans[parent]["self_s"] >= 0
+    for name in ("ingest.route", "sync", "finalize.d2h"):
+        assert spans[name]["self_s"] == spans[name]["s"]
+
+
+@pytest.mark.parametrize("glyph,per_chunk", [("point", 1), ("gaussian", 2),
+                                             ("line", 2)])
+def test_the_layout_synchronises_as_its_docstring_says(glyph, per_chunk):
+    p = pipeline(glyph, chunk_size=6000)
+    staged, _ = profiled(p.stage, cloud())
+    chunks = len(staged.per_spec[0])
+    assert chunks == 4                        # 20000 points, 6000 a chunk
+    snap = profiling.snapshot()
+    assert snap["counters"]["syncs"] == per_chunk * chunks
+    assert snap["spans"]["sync"]["n"] == per_chunk * chunks
+    assert snap["spans"]["ingest.layout"]["n"] == chunks
+
+
+class _Event:
+    """A copy's event that has completed."""
+    waits = 0
+
+    def synchronize(self):
+        _Event.waits += 1
+
+
+def test_the_arena_waits_once_a_reused_buffer():
+    arena = _Arena(torch.device("cpu"))
+    arena.cuda = True                 # its reuse path, without a card
+    hb = _HostBuf(torch.empty(256, dtype=torch.int32))
+    arena.give_back(hb)
+    _Event.waits = 0
+
+    def reuse(times):
+        for _ in range(times):
+            got = arena.checkout(100)
+            assert got is hb
+            got.event = _Event()
+            arena.give_back(got)
+    profiled(reuse, 3)
+    snap = profiling.snapshot()
+    # the first checkout found no event yet: two waits for three reuses
+    assert _Event.waits == 2
+    assert snap["counters"]["syncs"] == 2
+    assert snap["spans"]["ingest.buffer"]["n"] == 3
+    assert snap["spans"]["sync"]["n"] == 2
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_d2h_bytes_are_the_bands(streamed, monkeypatch):
+    if streamed:        # every band takes the strip-wise finalize
+        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
+    band, _ = profiled(job)
+    snap = profiling.snapshot()
+    assert snap["counters"]["d2h_bytes"] == band.nbytes == W * H * 4
+    assert snap["spans"]["finalize.d2h"]["n"] == 1
+    assert snap["spans"]["finalize.d2h"]["device_s"] is None   # no card
+    assert snap["counters"]["h2d_bytes"] == 2 * 20000 * 8  # cell | value
+
+
+def test_hybrid_workers_leave_no_self_time_negative():
+    cfg = dict(exec_mode=pcr.ExecutionMode.Hybrid, hybrid_cpu_threads=2,
+               chunk_size=4000)
+    band, _ = profiled(job, calls=2, **cfg)
+    spans = profiling.snapshot()["spans"]
+    for name, row in spans.items():
+        assert row["self_s"] >= 0, name
+        assert row["s"] >= row["self_s"]
+    assert spans["ingest"]["n"] == 2
+    assert spans["ingest.pack"]["n"] == 10    # 5 chunks a call, on workers
+    assert spans["ingest.commit"]["n"] == 10
+    assert np.array_equal(band.view(np.int32),
+                          job(calls=2, chunk_size=4000).view(np.int32))
