@@ -57,6 +57,9 @@ once a public `ingest` call, "ingest.route" around routing.assign,
 "ingest.tiles" around the touched-tile tracking, "finalize" once a
 `finalize` call and "finalize.mask" around the band's allocation and the
 touched-tile masking; the engine opens the rest (engine/torch_backend.py).
+Counters: "tiles_skips", tracking calls answered without reading a point
+(every tile already touched), and "tiles_scan_points", the points that the
+touched-tile scans of multi-tile grids read.
 
 Differences from the reference, by design (as in pcr_tpu):
   * Multi-reduction ingest shares one world→cell assignment per cloud
@@ -113,6 +116,9 @@ __all__ = ["ExecutionMode", "ReductionSpec", "PipelineConfig",
 _DEVICE = "torch"   # the backend tag of the device path
 _STREAM_MIN_BYTES = 2 << 20    # with an output file, stream bands this big
 _STRIP_TARGET_BYTES = 2 << 20  # a streamed finalize's row strip
+# clouds from this size take the native touched-tile pass, as they take the
+# native route in routing.assign
+_NATIVE_MIN_POINTS = 65536
 
 
 class ExecutionMode(enum.IntEnum):
@@ -864,28 +870,37 @@ class Pipeline:
 
     def _tiles_of(self, col, row, valid=None):
         """Exact set of (tile_row, tile_col) touched by the given cells
-        (an O(N) presence scan, no sort)."""
+        (an O(N) presence scan, no sort): one native pass on every core
+        for clouds of routing.assign's native size, numpy otherwise."""
         cfg = self.config.grid
         ntiles = cfg.tiles_x * cfg.tiles_y
         if len(col) == 0:
             return []
-        any_valid = bool(valid.any()) if valid is not None else True
-        if not any_valid:
-            return []
         if ntiles == 1:
             # single-tile grid (tile 4096^2 default covers most grids)
-            return [(0, 0)]
-        tid = ((row // np.int32(cfg.tile_height)) * np.int32(cfg.tiles_x)
-               + (col // np.int32(cfg.tile_width)))
-        if valid is not None:
-            # route invalid entries to a scratch bin instead of a gather
-            tid = np.where(valid, tid, np.int32(ntiles))
-        present = np.bincount(tid.ravel(), minlength=ntiles + 1)[:ntiles]
+            return [(0, 0)] if valid is None or valid.any() else []
+        profiling.count("tiles_scan_points", len(col))
+        if native.available() and len(col) >= _NATIVE_MIN_POINTS:
+            present = native.tile_presence(col, row, valid, cfg.tile_width,
+                                           cfg.tile_height, cfg.tiles_x,
+                                           ntiles)
+        else:
+            tid = ((row // np.int32(cfg.tile_height)) * np.int32(cfg.tiles_x)
+                   + (col // np.int32(cfg.tile_width)))
+            if valid is not None:
+                # route invalid entries to a scratch bin instead of a gather
+                tid = np.where(valid, tid, np.int32(ntiles))
+            present = np.bincount(tid.ravel(), minlength=ntiles + 1)[:ntiles]
         t = np.flatnonzero(present)
         return [(int(ti) // cfg.tiles_x, int(ti) % cfg.tiles_x) for ti in t]
 
     def _track_tiles(self, col, row, valid=None):
         with profiling.span("ingest.tiles"):
+            cfg = self.config.grid
+            if len(self._touched_tiles) == cfg.tiles_x * cfg.tiles_y:
+                # every tile is known: the set cannot grow
+                profiling.count("tiles_skips")
+                return
             self._touched_tiles.update(self._tiles_of(col, row, valid))
 
     def _emit_progress(self):

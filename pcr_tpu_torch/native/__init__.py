@@ -24,7 +24,7 @@ import numpy as np
 __all__ = ["available", "lib", "assign", "assign_cells", "fractional_cells",
            "gauss_wire_exact", "gauss_wire_words", "line_endpoints",
            "lzw_encode", "lzw_decode", "rotp_counts", "rotp_place",
-           "set_num_threads"]
+           "set_num_threads", "tile_presence"]
 
 _LIB = None
 _TRIED = False
@@ -80,6 +80,9 @@ def _load():
     u8 = ctypes.POINTER(ctypes.c_uint8)
     lib.pcr_assign.argtypes = [d, d, ctypes.c_int64] + \
         [ctypes.c_double] * 8 + [ctypes.c_int32] * 2 + [i, i, u8]
+    lib.pcr_tile_presence.argtypes = [i, i, u8, ctypes.c_int64] + \
+        [ctypes.c_int32] * 4 + [u8]
+    lib.pcr_tile_presence.restype = None
     lib.pcr_assign_cells.argtypes = [d, d, ctypes.c_int64] + \
         [ctypes.c_double] * 8 + [ctypes.c_int32] * 3 + [i]
     lib.pcr_fractional_cells.argtypes = [d, d, ctypes.c_int64] + \
@@ -169,6 +172,31 @@ def assign(cfg, x: np.ndarray, y: np.ndarray):
                  _ptr(col, ctypes.c_int32), _ptr(row, ctypes.c_int32),
                  _ptr(valid, ctypes.c_uint8))
     return col, row, valid.astype(bool)
+
+
+def tile_presence(col, row, valid, tile_w: int, tile_h: int, tiles_x: int,
+                  ntiles: int) -> np.ndarray:
+    """One-pass touched-tile presence: uint8 (ntiles,), 1 at tile
+    (row // tile_h) * tiles_x + col // tile_w of every valid cell (every
+    cell where `valid` is None); tiles at or past ntiles are dropped. A
+    bool `valid` is read in place as bytes."""
+    L = _load()
+    n = len(col)
+    col = np.ascontiguousarray(col, np.int32)
+    row = np.ascontiguousarray(row, np.int32)
+    if valid is not None:
+        if valid.dtype == np.bool_:
+            valid = valid.view(np.uint8)
+        valid = np.ascontiguousarray(valid, np.uint8)
+    if not (len(row) == n and (valid is None or len(valid) == n)
+            and tile_w > 0 and tile_h > 0 and 0 < tiles_x <= ntiles):
+        raise ValueError("tile_presence: bad lengths or tile shape")
+    present = np.zeros(ntiles, np.uint8)
+    L.pcr_tile_presence(_ptr(col, ctypes.c_int32), _ptr(row, ctypes.c_int32),
+                        None if valid is None else _ptr(valid, ctypes.c_uint8),
+                        n, tile_w, tile_h, tiles_x, ntiles,
+                        _ptr(present, ctypes.c_uint8))
+    return present
 
 
 def assign_cells(cfg, x: np.ndarray, y: np.ndarray,

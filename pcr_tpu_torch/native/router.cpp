@@ -160,6 +160,50 @@ void pcr_pack_point_wire(const int32_t* col, const int32_t* row,
     }
 }
 
+// a / d for 0 <= a < 2^31 and 1 <= d < 2^31 as (a * m) >> k: with
+// 2^(l-1) < d <= 2^l, k = 31 + l and m = ceil(2^k / d), a * m / 2^k =
+// a / d + a * e / (d * 2^k) where e = m * d - 2^k < d, and a * e < 2^k, so
+// the floor is a / d exactly; m <= 2^32 keeps a * m under 2^63. An integer
+// division costs several times as much a point.
+static inline uint64_t div_magic(int32_t d, int* k)
+{
+    int l = 0;
+    while ((int64_t(1) << l) < d) ++l;
+    *k = 31 + l;
+    return ((uint64_t(1) << *k) + uint64_t(d) - 1) / uint64_t(d);
+}
+
+// Touched-tile presence (Pipeline._tiles_of): present[t] = 1 for the tile
+// t = (row / tile_h) * tiles_x + col / tile_w of every valid cell (every
+// cell where valid is null); the caller zeroes the ntiles bytes. A slot is
+// read before it is written, so once its tile is marked the threads only
+// share its cache line instead of storing to it on every point; relaxed
+// atomics make that benign race defined. Cells are routing.assign's, never
+// negative; a negative one, or a tile at or past ntiles (which the numpy
+// version's bincount slice drops too), marks nothing. Threads take chunks
+// of 64k points as they free up, so one that the host preempts holds back
+// only its own chunk.
+void pcr_tile_presence(const int32_t* col, const int32_t* row,
+                       const uint8_t* valid, int64_t n,
+                       int32_t tile_w, int32_t tile_h, int32_t tiles_x,
+                       int32_t ntiles, uint8_t* present)
+{
+    int kw, kh;
+    const uint64_t mw = div_magic(tile_w, &kw);
+    const uint64_t mh = div_magic(tile_h, &kh);
+#pragma omp parallel for schedule(dynamic, 65536)
+    for (int64_t i = 0; i < n; ++i) {
+        if (valid && !valid[i]) continue;
+        const uint32_t c = uint32_t(col[i]), r = uint32_t(row[i]);
+        if ((c | r) >> 31) continue;
+        const uint64_t t = ((r * mh) >> kh) * uint64_t(tiles_x)
+                         + ((c * mw) >> kw);
+        if (t >= uint64_t(ntiles)) continue;
+        if (!__atomic_load_n(&present[t], __ATOMIC_RELAXED))
+            __atomic_store_n(&present[t], uint8_t(1), __ATOMIC_RELAXED);
+    }
+}
+
 // The exact Gaussian wire of the device layout (engine/device_prep.py,
 // TorchEngine.prepare_gaussian_raw; uniform-shape clouds): one pass from
 // raw f64 world coords of the [start, end) slice to the int32 buffer
