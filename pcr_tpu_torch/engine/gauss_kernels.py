@@ -57,7 +57,7 @@ from .kernels import BLOCK
 __all__ = ["GaussGeom", "ROT_CUT", "SplatPlan", "block_hits", "gauss_windows",
            "rot_dense_windows", "rot_distances", "rot_splat_dense",
            "rot_splat_dense_plain", "rot_splat_packed",
-           "rot_splat_packed_plain", "sorted_splat_gauss",
+           "rot_splat_packed_plain", "rot_walk", "sorted_splat_gauss",
            "sorted_splat_gauss_plain", "splat_plan"]
 
 ROT_CUT = -19.931569        # -ln(1e6) * log2(e): the 1e-6 product cutoff
@@ -464,6 +464,42 @@ def rot_dense_windows(icx, icy, r, geom: GaussGeom):
         rhi = rhi.clamp(max=float(g.H - 1))
     whi = torch.where(r < 0, wlo - 1.0, whi)
     return wlo, whi, rlo, rhi
+
+
+_WALK_SUBS = 1 << 12    # sub-chunks rot_walk reads at a time
+
+
+def rot_walk(kind: str, params: torch.Tensor, bids: torch.Tensor, th: int,
+             wt: int, shape, geom: GaussGeom | None = None) -> tuple:
+    """(entries, window cells) of a K4 ("rot") or K5 ("rotp") chunk over
+    state fields of `shape` (H_pad, W_pad): the live entries of its runs,
+    halo copies included, and the cells of their windows (K4:
+    rot_dense_windows, which reads `geom`; K5: the host-clipped window)
+    cut to their tiles, summed: the cells the kernel evaluates. Reads the
+    device once."""
+    h_pad, w_pad = shape
+    ncb = w_pad // wt
+    nb_total = h_pad // th * ncb
+    totals = torch.zeros(2, dtype=torch.int64, device=params.device)
+    for a in range(0, params.shape[0], _WALK_SUBS):
+        p = params[a:a + _WALK_SUBS]
+        b = bids[a:a + _WALK_SUBS, None].long()
+        run = (b >= 0) & (b < nb_total)
+        row0, col0 = (b // ncb * th).float(), (b % ncb * wt).float()
+        if kind == "rot":
+            alive = run & (p[:, 8] >= 0)
+            wlo, whi, rlo, rhi = rot_dense_windows(p[:, 6], p[:, 7], p[:, 8],
+                                                   geom)
+        else:
+            wlo, whi, rlo, rhi = p[:, 6], p[:, 7], p[:, 8], p[:, 9]
+            alive = run & (wlo <= whi) & (rlo <= rhi)
+        nx = (torch.minimum(whi, col0 + (wt - 1))
+              - torch.maximum(wlo, col0) + 1).clamp(min=0)
+        ny = (torch.minimum(rhi, row0 + (th - 1))
+              - torch.maximum(rlo, row0) + 1).clamp(min=0)
+        cells = torch.where(alive, nx * ny, 0.0).long()
+        totals += torch.stack([alive.sum(), cells.sum()])
+    return tuple(totals.tolist())
 
 
 def rot_splat_dense_plain(states, params: torch.Tensor, bids: torch.Tensor,

@@ -78,6 +78,7 @@ Differences from the reference, by design (as in pcr_tpu):
 
 from __future__ import annotations
 
+import contextvars
 import enum
 import os
 import shutil
@@ -108,7 +109,7 @@ from . import routing
 from .filter import FilterSpec, evaluate_filter_mask
 from .glyph import GLYPH_SUPPORTED_REDUCTIONS, GlyphSpec, GlyphType
 from .tiling import INGEST_CHUNK_POINTS, chunk_ranges
-from .torch_backend import TorchEngine
+from .torch_backend import TorchEngine, staging
 
 __all__ = ["ExecutionMode", "ReductionSpec", "PipelineConfig",
            "ProgressInfo", "StagedCloud", "Pipeline"]
@@ -509,7 +510,9 @@ class Pipeline:
         This is the analogue of the reference's Device-resident clouds
         ("GPU-Device" mode, docs/BENCHMARK_RESULTS.md:28-42): a subsequent
         `ingest(staged)` is pure device compute. Only available on the
-        device backend."""
+        device backend. The K4 / K5 chunks count their walk here
+        (torch_backend.staging), so that an ingest of them under a profiler
+        reads nothing of the device for its counters."""
         if self._backend != _DEVICE:
             raise PcrError(Status.error(
                 StatusCode.InvalidArgument,
@@ -534,9 +537,10 @@ class Pipeline:
                 continue
             weights, timestamps = self._aux_channels(spec, info, cloud, n)
             gt = GlyphType(spec.glyph.type)
-            per_spec.append([c for chunks in self._staged_chunks(
-                i, spec, gt, cloud, x, y, col, row, valid, values, weights,
-                timestamps) for c in chunks])
+            with staging():
+                per_spec.append([c for chunks in self._staged_chunks(
+                    i, spec, gt, cloud, x, y, col, row, valid, values,
+                    weights, timestamps) for c in chunks])
         return StagedCloud(per_spec=per_spec,
                            n_valid=int(np.count_nonzero(valid)),
                            tiles=frozenset(self._tiles_of(col, row, valid)))
@@ -853,7 +857,8 @@ class Pipeline:
         with ThreadPoolExecutor(max_workers=workers) as ex:
             pending = deque()
             for r in ranges:
-                pending.append(ex.submit(prep, r))
+                pending.append(ex.submit(contextvars.copy_context().run,
+                                         prep, r))
                 if len(pending) > workers:
                     yield pending.popleft().result()
             while pending:

@@ -65,11 +65,16 @@ result or of fetch_state's planes to the host goes through `_to_host`, the
 one owner of "finalize.d2h"; every host synchronisation, the arena's wait
 for a buffer included, through device_prep.sync. (Out-of-core band swaps
 copy into host bands of their own and count them in
-OutOfCoreTorchEngine.stats.)
+OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
+"rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk), which the
+chunk's layout counted where a profiler recorded or the chunk was being
+staged (`staging`): a commit reads nothing of the device for them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
 import dataclasses
 import os
@@ -97,7 +102,7 @@ from .tiling import (ROT_COL_TILE, ROT_ROW_BLOCK, ROTP_RMAX, ROTP_ROW_BLOCK,
                      padded_width, rect_col_tile, rot_quadratic_segs)
 
 __all__ = ["StagedChunk", "TorchEngine", "halo_copies", "layout_tiles",
-           "layout_tiles_numpy", "shard_view"]
+           "layout_tiles_numpy", "shard_view", "staging"]
 
 ROTP_COL_TILE = 128     # K5's tile width (the TPU kernel's WT)
 
@@ -132,7 +137,9 @@ class StagedChunk:
           (timestamp bits)] and bids None.
 
     `ready` is the event of the upload the tensors came from (None on the
-    CPU): `commit` makes its stream wait on it."""
+    CPU): `commit` makes its stream wait on it. `walk` is a K4 / K5
+    chunk's (entries, window cells) where its layout counted them
+    (TorchEngine._counted)."""
     kind: str
     params: torch.Tensor
     bids: torch.Tensor | None
@@ -141,6 +148,23 @@ class StagedChunk:
     wt: int = 0
     cut: bool = False
     ready: object = None
+    walk: tuple | None = None
+
+
+_STAGING = contextvars.ContextVar("pcr_tpu_torch_staging", default=False)
+
+
+@contextlib.contextmanager
+def staging():
+    """The block stages clouds (Pipeline.stage): the K4 / K5 chunks laid
+    out in it count their walk then, so that no later commit of them reads
+    the device for its counters. A thread the block hands work to runs it
+    in a copy of the block's context (contextvars.copy_context)."""
+    token = _STAGING.set(True)
+    try:
+        yield
+    finally:
+        _STAGING.reset(token)
 
 
 def _bits(a, fill):
@@ -862,8 +886,19 @@ class TorchEngine:
                                                  fills, idx)
         if plan.kind != "gauss":
             params = params.view(torch.float32)
-        return StagedChunk(plan.kind, params, bids, m, plan.th, plan.wt,
-                           plan.cut, ev)
+        return self._counted(StagedChunk(plan.kind, params, bids, m, plan.th,
+                                         plan.wt, plan.cut, ev))
+
+    def _counted(self, chunk: StagedChunk) -> StagedChunk:
+        """`chunk`, a K4 / K5 one with its walk counted
+        (gauss_kernels.rot_walk, one device read) where a profiler records
+        or the chunk is being staged: the counters commit adds."""
+        if chunk.kind in ("rot", "rotp") and (profiling.recording()
+                                              or _STAGING.get()):
+            chunk.walk = gauss_kernels.rot_walk(
+                chunk.kind, chunk.params, chunk.bids, chunk.th, chunk.wt,
+                (self.H_pad, self.W_state), self.geom)
+        return chunk
 
     def _gauss_host_chunk(self, info, plan, gp, valid, values):
         """Lay one Gaussian chunk out on the host and upload it."""
@@ -894,8 +929,9 @@ class TorchEngine:
         idx, eb = halo_copies(rng(icy - r, th, nrb), rng(icy + r, th, nrb),
                               rng(icx - r, wt, ncb), rng(icx + r, wt, ncb),
                               ncb)
-        return self._layout_upload(plan.kind, eb, nrb * ncb, segs, idx, n, th,
-                                   wt, cut=plan.cut, dtype=dtype)
+        return self._counted(self._layout_upload(
+            plan.kind, eb, nrb * ncb, segs, idx, n, th, wt, cut=plan.cut,
+            dtype=dtype))
 
     def _prepare_rotp(self, gp, valid, r, f0, n):
         """K5's chunk (TpuEngine._prepare_gaussian_rotp, :1808-1867): the
@@ -940,8 +976,9 @@ class TorchEngine:
                 (rlo.astype(np.float32), 0.0), (rhi.astype(np.float32), 0.0),
                 (gp.icx.astype(np.float32), 0.0),
                 (gp.icy.astype(np.float32), 0.0)]
-        return self._layout_upload("rotp", eb, self.H_pad // th * ncb, segs,
-                                   idx, n, th, wt, dtype=torch.float32)
+        return self._counted(self._layout_upload(
+            "rotp", eb, self.H_pad // th * ncb, segs, idx, n, th, wt,
+            dtype=torch.float32))
 
     # -- Line ------------------------------------------------------------------
 
@@ -1101,6 +1138,9 @@ class TorchEngine:
                 if chunk.kind != "scatter":
                     kernel, _, kw = self.splat_fns(chunk)
                     kernel(st, p, chunk.bids, **kw)
+                    if chunk.walk is not None:
+                        profiling.count("rot_entries", chunk.walk[0])
+                        profiling.count("rot_window_cells", chunk.walk[1])
                     continue
                 cells = p[0].long()
                 values = p[1].view(torch.float32)

@@ -44,7 +44,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["PhaseTimer", "trace", "span", "count", "device_span",
-           "snapshot", "reset"]
+           "recording", "snapshot", "reset"]
 
 PREFIX = "pcr."     # the port's spans in a trace
 
@@ -134,7 +134,7 @@ _device_ms: dict = {}           # name -> CUDA-event ms, resolved
 _pending: list = []             # (name, start event, end event)
 
 
-def _recording() -> bool:
+def recording() -> bool:
     """Whether a torch profiler records, on any thread."""
     return _autograd_profiler._is_profiler_enabled
 
@@ -190,14 +190,14 @@ def span(name: str):
     """A context manager: while a torch profiler records, the block is the
     range "pcr.<name>" in its trace and adds its host seconds to `name`'s
     row of the table; otherwise it does nothing."""
-    if not _recording():
+    if not recording():
         return _OFF
     return _Span(name)
 
 
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the counter `name`, while a torch profiler records."""
-    if _recording():
+    if recording():
         with _lock:
             _counters[name] = _counters.get(name, 0) + int(n)
 
@@ -229,7 +229,7 @@ def device_span(name: str, device):
     elapsed time goes into `name`'s device seconds. The time is read off
     the events once they have completed (at the next device span, or by
     `snapshot`), so the block waits for nothing."""
-    if not _recording() or torch.device(device).type != "cuda":
+    if not recording() or torch.device(device).type != "cuda":
         return _OFF
     return _DeviceSpan(name, device)
 

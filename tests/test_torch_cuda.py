@@ -290,6 +290,17 @@ def test_gauss_kernels_match_plain_and_rerun_bit_identical(card, glyph,
             torch.testing.assert_close(g, r, atol=rtol, rtol=rtol)
 
 
+@pytest.mark.parametrize("glyph", ["rot4", "rot8"])
+def test_a_staged_rotated_chunk_counts_its_walk_as_on_the_cpu(card, glyph):
+    """`stage` counts a K4 / K5 chunk's entries and window cells on the
+    card; the same count of the chunk's bytes on the CPU agrees."""
+    eng, chunk = gauss_chunk(card, glyph, 200_000, False)
+    cpu = gk.rot_walk(chunk.kind, chunk.params.cpu(), chunk.bids.cpu(),
+                      chunk.th, chunk.wt, (eng.H_pad, eng.W_state), eng.geom)
+    assert chunk.walk == cpu
+    assert chunk.walk[0] >= 200_000 and chunk.walk[1] > chunk.walk[0]
+
+
 @pytest.mark.parametrize("glyph", list(GLYPHS))
 def test_gauss_pipeline_on_the_card_matches_oracle(card, glyph, monkeypatch):
     monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
