@@ -105,7 +105,10 @@ class Grid:
     def band_array(self, band_index: int):
         """Band data as a (rows, cols) array. Host grids return the live
         numpy buffer (zero-copy, like the reference's numpy views at
-        bindings.cpp:257-268); Device grids the live torch tensor."""
+        bindings.cpp:257-268); Device grids the live torch tensor. A band
+        that a finalize brought from a card is pinned host memory (torch's
+        caching pinned allocator); it goes back to torch's cache when the
+        last reference to the array is dropped, never while one is held."""
         return self._data[band_index]
 
     def set_band_array(self, band_index: int, arr, copy: bool = True) -> None:

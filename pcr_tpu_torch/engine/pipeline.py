@@ -55,8 +55,10 @@ kernels; a `gpu_memory_budget` beside a mesh is an InvalidArgument.
 Spans (utils/profiling.py, recorded only under a torch profiler): "ingest"
 once a public `ingest` call, "ingest.route" around routing.assign,
 "ingest.tiles" around the touched-tile tracking, "finalize" once a
-`finalize` call and "finalize.mask" around the band's allocation and the
-touched-tile masking; the engine opens the rest (engine/torch_backend.py).
+`finalize` call and "finalize.mask" around the NaN written in place over
+the untouched tiles (with a `state_dir` on large grids: the band's
+allocation and the strips' masking into it); the engine opens the rest
+(engine/torch_backend.py).
 Counters: "tiles_skips", tracking calls answered without reading a point
 (every tile already touched), and "tiles_scan_points", the points that the
 touched-tile scans of multi-tile grids read.
@@ -1035,6 +1037,20 @@ class Pipeline:
                 if a < b:
                     band[a:b, cs:cs + cc] = host[a - r0:b - r0, cs:cs + cc]
 
+    def _nan_untouched(self, band) -> None:
+        """Write NaN, in place, over the cells of the tiles that no point
+        touched (per-tile finalize semantics, pipeline.cpp:1204-1283): the
+        device finalize's band becomes the result with no second copy."""
+        cfg = self.config.grid
+        if len(self._touched_tiles) == cfg.tiles_x * cfg.tiles_y:
+            return
+        for trow in range(cfg.tiles_y):
+            for tcol in range(cfg.tiles_x):
+                if (trow, tcol) not in self._touched_tiles:
+                    cs, rs, cc, rc = cfg.tile_cell_range(
+                        TileIndex(row=trow, col=tcol))
+                    band[rs:rs + rc, cs:cs + cc] = np.float32(np.nan)
+
     def _collect_band(self, i, spec):
         """Assemble an order-statistics (Median/Percentile) band from the
         collected (cell, value) stream (spill-backed: collect_spill)."""
@@ -1065,8 +1081,6 @@ class Pipeline:
         eng = self._engine
         grid = Grid.create(cfg.width, cfg.height, self._band_descs(),
                            MemoryLocation.Host)
-        all_touched = (len(self._touched_tiles)
-                       == cfg.tiles_x * cfg.tiles_y)
         for i, (spec, info) in enumerate(self._plans):
             if info.scatter_kind == "collect":
                 grid.set_band_array(i, self._collect_band(i, spec),
@@ -1076,35 +1090,29 @@ class Pipeline:
             if need_state:
                 fields = [host[k] for k in range(info.state_floats)]
                 self._write_state_tiles(i, fields)
-                full = np.asarray(info.finalize_arrays(fields),
+                band = np.asarray(info.finalize_arrays(fields),
                                   dtype=np.float32)
-                if any(full is f for f in fields):
-                    full = full.copy()   # Sum finalize returns state itself
+                if any(band is f for f in fields):
+                    band = band.copy()   # Sum finalize returns state itself
             else:
-                full = host[0]
+                band = host[0]
             with profiling.span("finalize.mask"):
-                if all_touched:
-                    band = np.ascontiguousarray(full, dtype=np.float32)
-                else:
-                    band = np.full((cfg.height, cfg.width), np.nan,
-                                   dtype=np.float32)
-                    for (trow, tcol) in self._touched_tiles:
-                        cs, rs, cc, rc = cfg.tile_cell_range(
-                            TileIndex(row=trow, col=tcol))
-                        band[rs:rs + rc, cs:cs + cc] = full[rs:rs + rc,
-                                                            cs:cs + cc]
+                self._nan_untouched(band)
             grid.set_band_array(i, band, copy=False)
         self._result = grid
         self._finalized = True
         self._write_output(grid)
 
     def _finalize_streamed(self, need_state: bool = False) -> None:
-        """Large-grid device finalize with encode/checkpoint overlap: per
-        reduction the engine finalizes on the device and hands back row
-        strips (~2 MB each, _STRIP_TARGET_BYTES); a writer thread
-        LZW-encodes strip k-1 into the GeoTIFF (and, with `need_state`,
-        writes the PCRT checkpoint from the same strips) while the main
-        thread masks strip k."""
+        """Large-grid device finalize with encode/checkpoint overlap. Per
+        reduction the engine finalizes on the device; a writer thread
+        LZW-encodes the band into the GeoTIFF in row strips (~2 MB each,
+        _STRIP_TARGET_BYTES). Without `need_state` the engine's whole band
+        (a card's lands in pinned memory, _to_host) is the result, masked
+        in place; with it the engine hands back raw state strips, and the
+        writer thread encodes strip k-1 and writes the PCRT checkpoint
+        from the same strips while the main thread finalizes and masks
+        strip k into a band of its own."""
         from concurrent.futures import ThreadPoolExecutor
 
         cfg = self.config.grid
@@ -1118,8 +1126,8 @@ class Pipeline:
             writer = StreamingGeoTiffWriter(self.config.output_path, cfg,
                                             names, self._geotiff_opts())
         target = _STRIP_TARGET_BYTES
-        # when every tile is touched the NaN prefill is fully overwritten
-        # by _mask_strip — skip the extra full-band pass on the host
+        # with state strips: when every tile is touched the NaN prefill is
+        # fully overwritten by _mask_strip — skip that full-band pass
         all_touched = (len(self._touched_tiles)
                        == cfg.tiles_x * cfg.tiles_y)
         ex = ThreadPoolExecutor(max_workers=1)
@@ -1140,32 +1148,39 @@ class Pipeline:
                 if writer is not None and rows >= cfg.height > 1:
                     # keep >=2 strips so the tail encode overlaps
                     rows = (cfg.height + 1) // 2
-                strips = eng.finalize_strips(i, min(rows, cfg.height),
-                                             with_state=need_state)
-                with profiling.span("finalize.mask"):
-                    band = (np.empty((cfg.height, cfg.width),
-                                     dtype=np.float32)
-                            if all_touched else
-                            np.full((cfg.height, cfg.width), np.nan,
-                                    dtype=np.float32))
-                fields = ([np.empty((cfg.height, cfg.width), np.float32)
-                           for _ in range(info.state_floats)]
-                          if need_state else None)
-                for r0, r1, host in strips:
-                    if need_state:
+                rows = min(rows, cfg.height)
+                if not need_state:
+                    # the engine's band is the result: NaN over the
+                    # untouched tiles in place, no second band
+                    band = eng.finalize_packed_async(i)[0]
+                    with profiling.span("finalize.mask"):
+                        self._nan_untouched(band)
+                    if writer is not None:
+                        for r0 in range(0, cfg.height, rows):
+                            futures.append(ex.submit(writer.write_rows,
+                                                     band[r0:r0 + rows]))
+                else:
+                    strips = eng.finalize_strips(i, rows, with_state=True)
+                    with profiling.span("finalize.mask"):
+                        band = (np.empty((cfg.height, cfg.width),
+                                         dtype=np.float32)
+                                if all_touched else
+                                np.full((cfg.height, cfg.width), np.nan,
+                                        dtype=np.float32))
+                    fields = [np.empty((cfg.height, cfg.width), np.float32)
+                              for _ in range(info.state_floats)]
+                    for r0, r1, host in strips:
                         for k in range(info.state_floats):
                             fields[k][r0:r1] = host[k]
                         fin = np.asarray(
                             info.finalize_arrays([host[k] for k in
                                                   range(info.state_floats)]),
                             dtype=np.float32)
-                    else:
-                        fin = host
-                    with profiling.span("finalize.mask"):
-                        self._mask_strip(band, fin, r0, r1)
-                    if writer is not None:
-                        futures.append(ex.submit(writer.write_rows,
-                                                 band[r0:r1]))
+                        with profiling.span("finalize.mask"):
+                            self._mask_strip(band, fin, r0, r1)
+                        if writer is not None:
+                            futures.append(ex.submit(writer.write_rows,
+                                                     band[r0:r1]))
                 if writer is not None:
                     futures.append(ex.submit(writer.end_band))
                 if need_state:

@@ -60,12 +60,13 @@ profiler): "ingest.buffer" (`_Arena.checkout`), "ingest.pack" (the wire's
 or a scatter chunk's fill), "ingest.upload" and the counter "h2d_bytes"
 (`_Arena.put`), "ingest.layout" (a chunk laid out on the card),
 "ingest.commit", "finalize.device" (the flush and the device finalize) and
-"finalize.d2h" with the counter "d2h_bytes". Every copy of a finalize
-result or of fetch_state's planes to the host goes through `_to_host`, the
-one owner of "finalize.d2h"; every host synchronisation, the arena's wait
-for a buffer included, through device_prep.sync. (Out-of-core band swaps
-copy into host bands of their own and count them in
-OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
+"finalize.d2h" with the counters "d2h_bytes" and "d2h_pinned_bytes" (the
+part that landed in pinned memory: all of it from a card). Every copy of a
+finalize result or of fetch_state's planes to the host goes through
+`_to_host`, the one owner of "finalize.d2h"; every host synchronisation,
+the arena's wait for a buffer included, through device_prep.sync.
+(Out-of-core band swaps copy into host bands of their own and count them
+in OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
 "rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk), which the
 chunk's layout counted where a profiler recorded or the chunk was being
 staged (`staging`): a commit reads nothing of the device for them.
@@ -342,11 +343,24 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     """A host copy of `t` as a numpy array: the one way a finalize result
     or a fetched state plane comes to the host, in the span
     "finalize.d2h" (host seconds, and the copy's device seconds from CUDA
-    events) and counted in "d2h_bytes"."""
-    profiling.count("d2h_bytes", t.numel() * t.element_size())
+    events) and counted in "d2h_bytes".
+
+    A card's tensor lands, by one DMA, in a block of torch's caching
+    pinned host allocator ("d2h_pinned_bytes"), and the array is that
+    block: it keeps the pinned tensor alive, and the block goes back to
+    torch's cache only when the caller drops the array, so no later copy
+    can land in memory a caller still holds. The copy is synchronous: the
+    array may be read at once."""
+    nbytes = t.numel() * t.element_size()
+    profiling.count("d2h_bytes", nbytes)
     with profiling.span("finalize.d2h"), \
             profiling.device_span("finalize.d2h", t.device):
-        return t.to("cpu", copy=True).numpy()
+        if t.device.type != "cuda":
+            return t.to("cpu", copy=True).numpy()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        profiling.count("d2h_pinned_bytes", nbytes)
+        return host.numpy()
 
 
 def _scatter_minmax(state, cells, values, C: int, reduce: str, fill: float):

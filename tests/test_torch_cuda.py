@@ -1304,3 +1304,78 @@ def test_the_ports_spans_time_the_finalize_copy_on_the_card(card, strips,
     assert snap["counters"]["syncs"] == 1
     assert snap["spans"]["sync"]["n"] == 1
     assert snap["spans"]["ingest"]["n"] == 1
+
+
+def pinned(band) -> bool:
+    """Whether `band` lies in pinned host memory."""
+    return torch.from_numpy(np.asarray(band)).is_pinned()
+
+
+@pytest.mark.parametrize("strips", [False, True], ids=["packed", "strips"])
+def test_the_finalize_band_lands_pinned_on_the_card(card, strips,
+                                                    monkeypatch):
+    """A card's finalize band is the pinned block its one copy landed in:
+    under torch.profiler `d2h_pinned_bytes` equals `d2h_bytes`, the bands'
+    bytes. On a 3 x 3-tile grid whose right tile column no point touches,
+    the NaN written in place over it gives CPU mode's footprint (a Sum's
+    empty cells are 0.0 in a touched tile, NaN in an untouched one) and
+    CPU mode's values within 1e-5."""
+    from pcr_tpu_torch.utils import profiling
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    if strips:
+        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
+    gc = make_grid_config(w=768.0, h=768.0, tile=256)
+    specs = [pcr.ReductionSpec(value_channel="v", type=t)
+             for t in (RT.Sum, RT.Average)]
+    clouds = [make_cloud(200_000, seed=21, w=500.0, h=768.0)]
+    profiling.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        pipes = card_and_cpu(gc, specs, clouds)
+    snap = profiling.snapshot()
+    profiling.reset()
+    card_p = pipes[pcr.ExecutionMode.GPU]
+    assert len(card_p._touched_tiles) == 6
+    for i in range(2):
+        assert pinned(card_p.result().band_array(i)), i
+    nbytes = 2 * 768 * 768 * 4
+    assert snap["counters"]["d2h_pinned_bytes"] == nbytes
+    assert snap["counters"]["d2h_bytes"] == nbytes
+    card_vs_cpu(pipes)
+    assert np.isnan(card_p.result().band_array(0)[:, 512:]).all()
+    assert not np.isnan(card_p.result().band_array(0)[:, :512]).any()
+
+
+@pytest.mark.parametrize("strips", [False, True], ids=["packed", "strips"])
+def test_a_held_band_is_not_aliased_by_later_jobs(card, strips,
+                                                  monkeypatch):
+    """A pinned block goes back to torch's cache only when its band is
+    dropped, so a band the caller holds is never the landing place of a
+    later copy: job 1's band stays bit for bit what it was while jobs 2
+    and 3 on the same grid, with other points, finalize and drop
+    theirs."""
+    monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
+    if strips:
+        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
+    gc = make_grid_config(w=1000.0, h=1000.0)
+
+    def job(seed):
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=gc, reductions=[pcr.ReductionSpec(value_channel="v",
+                                                   type=RT.Average)],
+            exec_mode=pcr.ExecutionMode.GPU, gpu_require_strict=True))
+        p.ingest(make_cloud(200_000, seed, 1000, 1000))
+        p.finalize()
+        return p.result().band_array(0)
+
+    held = job(1)
+    want = held.copy()
+    assert pinned(held)
+    for seed in (2, 3):
+        other = job(seed)
+        assert pinned(other)
+        assert not np.shares_memory(other, held)
+        assert not np.array_equal(other, want, equal_nan=True)
+        del other
+    assert np.array_equal(held, want, equal_nan=True)

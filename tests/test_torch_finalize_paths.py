@@ -131,3 +131,40 @@ def test_gauss_corr_residue_flush(path, monkeypatch):
     j._touched_tiles.add((0, 0))
     j.finalize()
     assert np.array_equal(band, j.result().band_array(0), equal_nan=True)
+
+
+@pytest.mark.parametrize("touched", ["all", "some"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "strips"])
+def test_the_band_is_the_engines_finalize(monkeypatch, packed, touched):
+    """Without a state_dir each result band is the very array the engine's
+    finalize returned (on a card: the pinned block the copy landed in),
+    NaN written over the untouched tiles in place: no second band. Values
+    and NaN footprint are the oracle's (a Sum's empty cells are 0.0 in a
+    touched tile, NaN in an untouched one)."""
+    if not packed:
+        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")     # force strips
+    gc = make_grid_config(w=150.0, h=120.0, tile=64)      # 3 x 2 tiles
+    specs = [ref.ReductionSpec(value_channel="v", type=t,
+                               output_band_name=f"b{int(t)}")
+             for t in (RT.Sum, RT.Average)]
+    w = 150.0 if touched == "all" else 90.0   # 90: the right column idle
+    clouds = [make_cloud(5000, seed=s, w=w, h=120.0) for s in (0, 1)]
+    p = make(port, GPU, specs, gc)
+    real, returned = p._engine.finalize_packed_async, []
+
+    def spy(*a, **kw):
+        returned.append(real(*a, **kw))
+        return returned[-1]
+    monkeypatch.setattr(p._engine, "finalize_packed_async", spy)
+    for c in like(port, clouds):
+        p.ingest(c)
+    p.finalize()
+    assert len(p._touched_tiles) == (6 if touched == "all" else 4)
+    assert len(returned) == 2
+    oracle = bands(ref, CPU, specs, clouds, gc)
+    for i in range(2):
+        band = p.result().band_array(i)
+        assert np.shares_memory(band, returned[i])
+        assert_close(band, oracle[i])
+    assert np.isnan(p.result().band_array(0)[:, 128:]).all() == (
+        touched == "some")

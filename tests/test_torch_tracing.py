@@ -6,9 +6,9 @@ Without a profiler nothing records. Under torch.profiler every span is a
 `ingest` counts once a public call; a span's self time is the rest of its
 seconds once its children's are taken out; the layout synchronises once a
 Point chunk and twice a Gaussian or Line chunk; the arena's wait counts
-once a reused buffer; `d2h_bytes` are the band's bytes; Hybrid workers
-leave no self time negative; and the bands do not change under the
-profiler.
+once a reused buffer; `d2h_bytes` are the band's bytes (none of them
+pinned: no card); Hybrid workers leave no self time negative; and the
+bands do not change under the profiler.
 """
 
 import numpy as np
@@ -226,6 +226,7 @@ def test_d2h_bytes_are_the_bands(streamed, monkeypatch):
     band, _ = profiled(job)
     snap = profiling.snapshot()
     assert snap["counters"]["d2h_bytes"] == band.nbytes == W * H * 4
+    assert "d2h_pinned_bytes" not in snap["counters"]   # pageable off a card
     assert snap["spans"]["finalize.d2h"]["n"] == 1
     assert snap["spans"]["finalize.d2h"]["device_s"] is None   # no card
     assert snap["counters"]["h2d_bytes"] == 2 * 20000 * 8  # cell | value
