@@ -163,9 +163,9 @@ Phases:
       glyph patterns, scenes 01-08 in gpu and cpu mode, every raster
       PASSing the comparator. The LiDAR gpu Point row's finalize is split
       on the host's clock (finalize_split): the device finalize and its
-      copy to the host, the touched-tile masking of each strip, and on
-      the writer's thread the GeoTIFF's tile codec, its file writes and
-      its tile copies;
+      copy to the host, the NaN over the untouched tiles, and
+      write_geotiff's band tiles with its tile codec (summed over its
+      threads) and its file writes;
   (q) the diagnostics and the quick validation
       (pcr_tpu_torch.scripts.diagnostics, .quick_validation), in this
       process: device_health (quick validation's section 1: the probes,
@@ -206,6 +206,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1830,28 +1831,27 @@ def counted(torch, fns, total, phase, label, run, need):
 @contextlib.contextmanager
 def finalize_split():
     """Host-clock seconds and calls of the parts of a device finalize that
-    streams a GeoTIFF (Pipeline._finalize_streamed), summed over the
-    block: the whole finalize; the device finalize and its copy to the
-    host (TorchEngine.finalize_strips); the touched-tile masking of each
-    strip on the main thread (Pipeline._mask_strip); and, on the writer's
-    one thread, StreamingGeoTiffWriter._encode_strip, of which the tile
-    codec (geotiff._compress) and the file writes (_TiffBuilder.write_raw)
-    are parts (the rest copies each tile out of the strip), then the
-    writer's close (the IFD). Yields (seconds, calls) by part; the
-    functions are restored after. It measures and changes nothing."""
+    writes a GeoTIFF, summed over the block: the whole finalize
+    (Pipeline.finalize); the device finalize and its one copy to the host
+    (TorchEngine.finalize_to_host); the NaN written over the untouched
+    tiles (Pipeline._nan_untouched); and write_geotiff's band tiles
+    (geotiff._write_band_tiles: the tile copies, the encode on up to 8
+    threads, the file writes), of which the tile codec (geotiff._compress,
+    its seconds summed over the threads) and the file writes
+    (_TiffBuilder.write_raw) are parts. Yields (seconds, calls) by part;
+    the functions are restored after. It measures and changes nothing."""
     from pcr_tpu_torch.engine.pipeline import Pipeline
     from pcr_tpu_torch.engine.torch_backend import TorchEngine
     from pcr_tpu_torch.io import geotiff
     parts = {"finalize": (Pipeline, "finalize"),
-             "device_finalize_d2h": (TorchEngine, "finalize_strips"),
-             "mask_strip": (Pipeline, "_mask_strip"),
-             "encode_strip": (geotiff.StreamingGeoTiffWriter,
-                              "_encode_strip"),
+             "device_finalize_d2h": (TorchEngine, "finalize_to_host"),
+             "nan_untouched": (Pipeline, "_nan_untouched"),
+             "band_tiles": (geotiff, "_write_band_tiles"),
              "compress": (geotiff, "_compress"),
-             "file_write": (geotiff._TiffBuilder, "write_raw"),
-             "close": (geotiff.StreamingGeoTiffWriter, "close")}
+             "file_write": (geotiff._TiffBuilder, "write_raw")}
     secs = dict.fromkeys(parts, 0.0)
     calls = dict.fromkeys(parts, 0)
+    lock = threading.Lock()
 
     def timed(name, fn):
         @functools.wraps(fn)
@@ -1860,8 +1860,9 @@ def finalize_split():
             try:
                 return fn(*args, **kwargs)
             finally:
-                secs[name] += time.perf_counter() - t0
-                calls[name] += 1
+                with lock:
+                    secs[name] += time.perf_counter() - t0
+                    calls[name] += 1
         return run
 
     saved = []
@@ -1877,20 +1878,17 @@ def finalize_split():
 
 
 def print_split(label, secs, calls):
-    tile_copy = (secs["encode_strip"] - secs["compress"]
-                 - secs["file_write"])
-    main = secs["device_finalize_d2h"] + secs["mask_strip"]
+    rest = (secs["finalize"] - secs["device_finalize_d2h"]
+            - secs["nan_untouched"] - secs["band_tiles"])
     print(f"{label} finalize split (host clock, s): finalize="
-          f"{secs['finalize']!r}; main thread: device finalize + D2H="
+          f"{secs['finalize']!r}; device finalize + D2H="
           f"{secs['device_finalize_d2h']!r} ({calls['device_finalize_d2h']} "
-          f"calls), _mask_strip={secs['mask_strip']!r} "
-          f"({calls['mask_strip']} strips), waiting for the writer="
-          f"{secs['finalize'] - main - secs['close']!r}; writer thread: "
-          f"_encode_strip={secs['encode_strip']!r} "
-          f"({calls['encode_strip']} tile rows) of which codec="
-          f"{secs['compress']!r} ({calls['compress']} tiles), file write="
-          f"{secs['file_write']!r}, tile copies={tile_copy!r}; then on the "
-          f"main thread close (IFD)={secs['close']!r}")
+          f"calls), _nan_untouched={secs['nan_untouched']!r}, "
+          f"_write_band_tiles={secs['band_tiles']!r} "
+          f"({calls['band_tiles']} bands) of which file write="
+          f"{secs['file_write']!r}; codec summed over its threads="
+          f"{secs['compress']!r} ({calls['compress']} calls); the rest "
+          f"(IFD, grid, spans)={rest!r}")
 
 
 def phase_p(torch, pcr, kernels, gk, lk, tmp, lidar_size=(40, 500_000,

@@ -114,8 +114,8 @@ class Grid:
     def set_band_array(self, band_index: int, arr, copy: bool = True) -> None:
         """Replace a band's contents. copy=False adopts a C-contiguous
         matching-dtype array zero-copy (the caller hands over ownership) —
-        used by the streamed finalize to avoid re-copying a 4 MB band the
-        host just assembled."""
+        used by the finalize to adopt the band its copy to the host landed
+        in."""
         a = _host(arr)
         if a.shape != (self._rows, self._cols):
             raise PcrError(Status.error(

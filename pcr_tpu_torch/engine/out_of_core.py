@@ -42,7 +42,7 @@ TorchEngine.fetch_state would (residues under GAUSS_WMIN are zeroed at
 every swap, as in pcr_tpu), then copies the next band's rows to the card
 (TorchEngine.load_state). Both copies go through pageable memory, one
 band at a time. Finalize flushes the band and finalizes on the host from
-the host state, strip by strip.
+the host state.
 
 Staging returns a list of (band, staged chunks) pairs; `commit` applies
 them band by band in ascending order. The raw staging paths
@@ -68,7 +68,7 @@ import numpy as np
 import torch
 
 from ..core.grid_config import GridConfig
-from ..ops.reduction import gauss_state_flush
+from ..ops.reduction import _host_finalize, gauss_state_flush
 from .kernels import TH
 from .tiling import padded_width
 from .torch_backend import TorchEngine
@@ -223,34 +223,14 @@ class OutOfCoreTorchEngine:
         self._cur = None    # the band on the card is stale
         self._host[spec_idx] = [np.array(f, np.float32) for f in fields_hw]
 
-    def _host_finalize(self, info, planes):
-        out = np.asarray(info.finalize_arrays(list(planes)), np.float32)
-        if any(np.may_share_memory(out, p) for p in planes):
-            out = out.copy()    # Sum's finalize returns the state itself
-        return out
-
-    def finalize_packed_async(self, spec_idx: int, with_state: bool = False):
+    def finalize_to_host(self, spec_idx: int, with_state: bool = False):
         """Host (K, H, W) raw state planes (`with_state`) or the (1, H, W)
         finalized band, from the host state."""
         _, info = self.plans[spec_idx]
         planes = self._flushed(spec_idx)
         if with_state:
             return np.stack(planes)
-        return self._host_finalize(info, planes)[None]
-
-    def finalize_strips(self, spec_idx: int, strip_rows: int = 256,
-                        with_state: bool = False):
-        """[(row0, row1, host strip)], strips (rows, W), or (K, rows, W)
-        with `with_state`, finalized on the host strip by strip."""
-        _, info = self.plans[spec_idx]
-        planes = self._flushed(spec_idx)
-        out = []
-        for a in range(0, self.H, strip_rows):
-            b = min(a + strip_rows, self.H)
-            strip = [p[a:b] for p in planes]
-            out.append((a, b, np.stack(strip) if with_state
-                        else self._host_finalize(info, strip)))
-        return out
+        return _host_finalize(info, planes)[None]
 
     def block_until_ready(self) -> None:
         self._flush_cur()

@@ -52,12 +52,18 @@ driving them all (parallel/engine.py: ShardedTorchEngine for a one-tile
 grid, PartitionedTorchEngine for a tiled one), each shard on the same
 kernels; a `gpu_memory_budget` beside a mesh is an InvalidArgument.
 
+Finalize: every device grid, whatever its size, takes one path
+(`_finalize_device`): per reduction one copy to the host of the finalized
+band, or with a `state_dir` of the raw state planes, from which the PCRT
+tiles are written and the band finalized on the host; NaN over the
+untouched tiles in place; then `write_geotiff` writes the output file,
+encoding tiles on up to 8 threads.
+
 Spans (utils/profiling.py, recorded only under a torch profiler): "ingest"
 once a public `ingest` call, "ingest.route" around routing.assign,
 "ingest.tiles" around the touched-tile tracking, "finalize" once a
 `finalize` call and "finalize.mask" around the NaN written in place over
-the untouched tiles (with a `state_dir` on large grids: the band's
-allocation and the strips' masking into it); the engine opens the rest
+the untouched tiles of a band; the engine opens the rest
 (engine/torch_backend.py).
 Counters: "tiles_skips", tracking calls answered without reading a point
 (every tile already touched), and "tiles_scan_points", the points that the
@@ -104,7 +110,7 @@ from ..core.types import (
     StatusCode, TileIndex,
 )
 from ..io import tile_state_io
-from ..ops.reduction import get_reduction_info
+from ..ops.reduction import _host_finalize, get_reduction_info
 from ..utils import profiling
 from . import cpu_backend as cpu
 from . import routing
@@ -117,8 +123,6 @@ __all__ = ["ExecutionMode", "ReductionSpec", "PipelineConfig",
            "ProgressInfo", "StagedCloud", "Pipeline"]
 
 _DEVICE = "torch"   # the backend tag of the device path
-_STREAM_MIN_BYTES = 2 << 20    # with an output file, stream bands this big
-_STRIP_TARGET_BYTES = 2 << 20  # a streamed finalize's row strip
 # clouds from this size take the native touched-tile pass, as they take the
 # native route in routing.assign
 _NATIVE_MIN_POINTS = 65536
@@ -928,80 +932,71 @@ class Pipeline:
             self._finalize()
 
     def _finalize(self) -> None:
-        if self._backend == _DEVICE:
-            # Small grids finalize in one device pass and one copy to the
-            # host (_finalize_packed); large grids stream row strips with
-            # encode/checkpoint overlap (_finalize_streamed). With
-            # state_dir set, only the raw state planes come to the host
-            # and the band is finalized there from the same bytes that
-            # become the PCRT checkpoint.
-            cfg = self.config.grid
-            need_state = bool(self.config.state_dir)
-            pack_max = int(os.environ.get("PCR_PACK_MAX_BYTES",
-                                          str(8 << 20)))
-            worst = 0
-            for spec, info in self._plans:
-                if info.scatter_kind == "collect":
-                    continue
-                planes = info.state_floats if need_state else 1
-                worst = max(worst, planes * cfg.height * cfg.width * 4)
-            # With an encoded output the streamed path wins earlier: the
-            # LZW encode of strip k-1 overlaps the fetch of strip k.
-            stream_min = (_STREAM_MIN_BYTES if self.config.output_path
-                          else pack_max)
-            if worst <= min(pack_max, 2 * stream_min - 1):
-                return self._finalize_packed(need_state)
-            return self._finalize_streamed(need_state)
-        if self.config.state_dir or self._tiled:
+        # Per-tile finalize semantics (pipeline.cpp:1204-1283): a tile no
+        # point touched is NaN, so e.g. a Sum is 0.0 in the empty cells of
+        # a touched tile and NaN in an untouched one. The device path and
+        # a whole host state finalize every cell and write NaN over the
+        # untouched tiles in place; a tiled host state has no state for
+        # those tiles and finalizes tile by tile.
+        if self._backend != _DEVICE and (self.config.state_dir
+                                         or self._tiled):
             self._flush_state()
-
         cfg = self.config.grid
         grid = Grid.create(cfg.width, cfg.height, self._band_descs(),
                            MemoryLocation.Host)
-        # When every tile was touched the NaN prefill is fully overwritten —
-        # skip it (and the extra full-band copy below).
-        all_touched = (len(self._touched_tiles)
-                       == cfg.tiles_x * cfg.tiles_y)
         for i, (spec, info) in enumerate(self._plans):
-            # Per-tile finalize, reference semantics (pipeline.cpp:1204-1283):
-            # bands start NaN; only tiles with state are finalized, so e.g.
-            # Sum yields 0.0 for empty cells inside touched tiles and NaN
-            # for untouched tiles.
-            band = (np.empty((cfg.height, cfg.width), dtype=np.float32)
-                    if all_touched else
-                    np.full((cfg.height, cfg.width), np.nan,
-                            dtype=np.float32))
             if info.scatter_kind == "collect":
-                grid.set_band_array(i, self._collect_band(i, spec))
-                continue
-            if self._tiled:
-                mgr = self._managers[i]
-                for (trow, tcol) in self._touched_tiles:
-                    tile = TileIndex(row=trow, col=tcol)
-                    cs, rs, cc, rc = cfg.tile_cell_range(tile)
-                    block = mgr.acquire(tile)
-                    tile_fields = [block[f]
-                                   for f in range(info.state_floats)]
-                    band[rs:rs + rc, cs:cs + cc] = np.asarray(
-                        info.finalize_arrays(tile_fields), dtype=np.float32)
-            elif all_touched:
-                band = np.asarray(
-                    info.finalize_arrays(list(self._host_state[i])),
-                    dtype=np.float32)
-                if any(band is f for f in self._host_state[i]):
-                    band = band.copy()   # Sum finalize returns state itself
+                band = self._collect_band(i, spec)
+            elif self._backend == _DEVICE:
+                band = self._finalize_device(i, info)
+            elif self._tiled:
+                band = self._finalize_tiles(i, info)
             else:
-                fields = self._host_state[i]
-                for (trow, tcol) in self._touched_tiles:
-                    cs, rs, cc, rc = cfg.tile_cell_range(
-                        TileIndex(row=trow, col=tcol))
-                    tile_fields = [f[rs:rs + rc, cs:cs + cc] for f in fields]
-                    band[rs:rs + rc, cs:cs + cc] = np.asarray(
-                        info.finalize_arrays(tile_fields), dtype=np.float32)
+                band = _host_finalize(info, self._host_state[i])
+                with profiling.span("finalize.mask"):
+                    self._nan_untouched(band)
             grid.set_band_array(i, band, copy=False)
         self._result = grid
         self._finalized = True
         self._write_output(grid)
+
+    def _finalize_device(self, i, info) -> np.ndarray:
+        """The device finalize of reduction `i`, whatever the grid's size:
+        one engine call whose host copy is the (1, H, W) finalized band,
+        or with a state_dir the (K, H, W) raw state planes. From views of
+        those planes the PCRT tiles are written and the band is finalized
+        on the host, so the checkpoint costs no second copy (the
+        reference's flush_all + assemble single pass,
+        pipeline.cpp:1154-1363). The band (on a card: the pinned block the
+        copy landed in) gets NaN over the untouched tiles in place and
+        becomes the result with no copy."""
+        need_state = bool(self.config.state_dir)
+        host = self._engine.finalize_to_host(i, need_state)
+        if need_state:
+            fields = list(host)
+            self._write_state_tiles(i, fields)
+            band = _host_finalize(info, fields)
+        else:
+            band = host[0]
+        with profiling.span("finalize.mask"):
+            self._nan_untouched(band)
+        return band
+
+    def _finalize_tiles(self, i, info) -> np.ndarray:
+        """A tiled host state's band: NaN, and each touched tile finalized
+        from the tile manager's block."""
+        cfg = self.config.grid
+        band = np.full((cfg.height, cfg.width), np.nan, dtype=np.float32)
+        mgr = self._managers[i]
+        for (trow, tcol) in self._touched_tiles:
+            tile = TileIndex(row=trow, col=tcol)
+            cs, rs, cc, rc = cfg.tile_cell_range(tile)
+            block = mgr.acquire(tile)
+            band[rs:rs + rc, cs:cs + cc] = np.asarray(
+                info.finalize_arrays([block[f]
+                                      for f in range(info.state_floats)]),
+                dtype=np.float32)
+        return band
 
     def _write_output(self, grid) -> None:
         if self.config.output_path:
@@ -1019,23 +1014,6 @@ class Pipeline:
     def _band_descs(self):
         return [BandDesc(name=n, dtype=DataType.Float32, is_state=False)
                 for n in self._band_names()]
-
-    def _mask_strip(self, band, host, r0, r1):
-        """Copy the touched-tile regions of a fetched row strip into the
-        NaN-initialized output band (per-tile finalize semantics,
-        pipeline.cpp:1204-1283)."""
-        cfg = self.config.grid
-        t0 = r0 // cfg.tile_height
-        t1 = (r1 - 1) // cfg.tile_height
-        for trow in range(t0, t1 + 1):
-            for tcol in range(cfg.tiles_x):
-                if (trow, tcol) not in self._touched_tiles:
-                    continue
-                cs, rs, cc, rc = cfg.tile_cell_range(
-                    TileIndex(row=trow, col=tcol))
-                a, b = max(rs, r0), min(rs + rc, r1)
-                if a < b:
-                    band[a:b, cs:cs + cc] = host[a - r0:b - r0, cs:cs + cc]
 
     def _nan_untouched(self, band) -> None:
         """Write NaN, in place, over the cells of the tiles that no point
@@ -1069,136 +1047,6 @@ class Pipeline:
             return GeoTiffOptions(cloud_optimized=self.config.write_cog)
         return GeoTiffOptions(cloud_optimized=self.config.write_cog,
                               compress="DEFLATE", compress_level=1)
-
-    def _finalize_packed(self, need_state: bool) -> None:
-        """Small-grid device finalize: per reduction, one device pass whose
-        result comes to the host in one copy. With `need_state` the copy
-        carries the raw state planes — the PCRT checkpoint is written from
-        them and the band is host-finalized, so checkpointing costs no
-        extra copy (the reference's flush_all + assemble single pass,
-        pipeline.cpp:1154-1363)."""
-        cfg = self.config.grid
-        eng = self._engine
-        grid = Grid.create(cfg.width, cfg.height, self._band_descs(),
-                           MemoryLocation.Host)
-        for i, (spec, info) in enumerate(self._plans):
-            if info.scatter_kind == "collect":
-                grid.set_band_array(i, self._collect_band(i, spec),
-                                    copy=False)
-                continue
-            host = eng.finalize_packed_async(i, need_state)
-            if need_state:
-                fields = [host[k] for k in range(info.state_floats)]
-                self._write_state_tiles(i, fields)
-                band = np.asarray(info.finalize_arrays(fields),
-                                  dtype=np.float32)
-                if any(band is f for f in fields):
-                    band = band.copy()   # Sum finalize returns state itself
-            else:
-                band = host[0]
-            with profiling.span("finalize.mask"):
-                self._nan_untouched(band)
-            grid.set_band_array(i, band, copy=False)
-        self._result = grid
-        self._finalized = True
-        self._write_output(grid)
-
-    def _finalize_streamed(self, need_state: bool = False) -> None:
-        """Large-grid device finalize with encode/checkpoint overlap. Per
-        reduction the engine finalizes on the device; a writer thread
-        LZW-encodes the band into the GeoTIFF in row strips (~2 MB each,
-        _STRIP_TARGET_BYTES). Without `need_state` the engine's whole band
-        (a card's lands in pinned memory, _to_host) is the result, masked
-        in place; with it the engine hands back raw state strips, and the
-        writer thread encodes strip k-1 and writes the PCRT checkpoint
-        from the same strips while the main thread finalizes and masks
-        strip k into a band of its own."""
-        from concurrent.futures import ThreadPoolExecutor
-
-        cfg = self.config.grid
-        eng = self._engine
-        names = self._band_names()
-        grid = Grid.create(cfg.width, cfg.height, self._band_descs(),
-                           MemoryLocation.Host)
-        writer = None
-        if self.config.output_path:
-            from ..io.geotiff import StreamingGeoTiffWriter
-            writer = StreamingGeoTiffWriter(self.config.output_path, cfg,
-                                            names, self._geotiff_opts())
-        target = _STRIP_TARGET_BYTES
-        # with state strips: when every tile is touched the NaN prefill is
-        # fully overwritten by _mask_strip — skip that full-band pass
-        all_touched = (len(self._touched_tiles)
-                       == cfg.tiles_x * cfg.tiles_y)
-        ex = ThreadPoolExecutor(max_workers=1)
-        futures = []
-        bands = []
-        try:
-            for i, (spec, info) in enumerate(self._plans):
-                if info.scatter_kind == "collect":
-                    band = self._collect_band(i, spec)
-                    if writer is not None:
-                        futures.append(ex.submit(writer.write_rows, band))
-                        futures.append(ex.submit(writer.end_band))
-                    grid.set_band_array(i, band, copy=False)
-                    bands.append(band)
-                    continue
-                nplanes = info.state_floats if need_state else 1
-                rows = max(1, target // (cfg.width * 4 * nplanes))
-                if writer is not None and rows >= cfg.height > 1:
-                    # keep >=2 strips so the tail encode overlaps
-                    rows = (cfg.height + 1) // 2
-                rows = min(rows, cfg.height)
-                if not need_state:
-                    # the engine's band is the result: NaN over the
-                    # untouched tiles in place, no second band
-                    band = eng.finalize_packed_async(i)[0]
-                    with profiling.span("finalize.mask"):
-                        self._nan_untouched(band)
-                    if writer is not None:
-                        for r0 in range(0, cfg.height, rows):
-                            futures.append(ex.submit(writer.write_rows,
-                                                     band[r0:r0 + rows]))
-                else:
-                    strips = eng.finalize_strips(i, rows, with_state=True)
-                    with profiling.span("finalize.mask"):
-                        band = (np.empty((cfg.height, cfg.width),
-                                         dtype=np.float32)
-                                if all_touched else
-                                np.full((cfg.height, cfg.width), np.nan,
-                                        dtype=np.float32))
-                    fields = [np.empty((cfg.height, cfg.width), np.float32)
-                              for _ in range(info.state_floats)]
-                    for r0, r1, host in strips:
-                        for k in range(info.state_floats):
-                            fields[k][r0:r1] = host[k]
-                        fin = np.asarray(
-                            info.finalize_arrays([host[k] for k in
-                                                  range(info.state_floats)]),
-                            dtype=np.float32)
-                        with profiling.span("finalize.mask"):
-                            self._mask_strip(band, fin, r0, r1)
-                        if writer is not None:
-                            futures.append(ex.submit(writer.write_rows,
-                                                     band[r0:r1]))
-                if writer is not None:
-                    futures.append(ex.submit(writer.end_band))
-                if need_state:
-                    futures.append(ex.submit(self._write_state_tiles,
-                                             i, fields))
-                grid.set_band_array(i, band, copy=False)
-                bands.append(band)
-            for f in futures:
-                f.result()
-            if writer is not None:
-                st = writer.close(
-                    overview_bands=bands if self.config.write_cog else None)
-                if not st.ok():
-                    raise PcrError(st)
-        finally:
-            ex.shutdown(wait=True)
-        self._result = grid
-        self._finalized = True
 
     # -- convenience ----------------------------------------------------------------
 

@@ -61,9 +61,11 @@ or a scatter chunk's fill), "ingest.upload" and the counter "h2d_bytes"
 (`_Arena.put`), "ingest.layout" (a chunk laid out on the card),
 "ingest.commit", "finalize.device" (the flush and the device finalize) and
 "finalize.d2h" with the counters "d2h_bytes" and "d2h_pinned_bytes" (the
-part that landed in pinned memory: all of it from a card). Every copy of a
-finalize result or of fetch_state's planes to the host goes through
-`_to_host`, the one owner of "finalize.d2h"; every host synchronisation,
+part that landed in pinned memory: all of it from a card). A finalize is
+one `finalize_to_host` a reduction: one copy of the band, or with a
+`state_dir` of the K state planes. Every copy of a finalize result or of
+fetch_state's planes to the host goes through `_to_host`, the one owner
+of "finalize.d2h"; every host synchronisation,
 the arena's wait for a buffer included, through device_prep.sync.
 (Out-of-core band swaps copy into host bands of their own and count them
 in OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
@@ -510,10 +512,6 @@ class TorchEngine:
     def fetch_state(self, spec_idx: int):
         """Copy the state to the host as a list of (H, W) float32 arrays."""
         return [_to_host(f) for f in self._flushed_planes(spec_idx)]
-
-    def finalize_band(self, spec_idx: int) -> np.ndarray:
-        """Finalize on the device; fetch only the (H, W) band."""
-        return self.finalize_packed_async(spec_idx)[0]
 
     # -- staging -------------------------------------------------------------
 
@@ -1205,10 +1203,12 @@ class TorchEngine:
 
     # -- finalize ----------------------------------------------------------------
 
-    def finalize_packed_async(self, spec_idx: int, with_state: bool = False):
-        """Host (K, H, W) raw state planes (`with_state`) or the (1, H, W)
-        finalized band. The copy to the host completes before this returns,
-        so the shared finalize code can np.asarray the result."""
+    def finalize_to_host(self, spec_idx: int, with_state: bool = False):
+        """The host copy of a spec's result, by one `_to_host` copy: the
+        (1, H, W) band finalized on the device, or with `with_state` the
+        (K, H, W) raw state planes, Gaussian flush applied. A Custom op's
+        planes come over and its `finalize_arrays` runs on the host. The
+        copy completes before this returns."""
         _, info = self.plans[spec_idx]
         with profiling.span("finalize.device"):
             planes = self._flushed_planes(spec_idx)
@@ -1219,17 +1219,6 @@ class TorchEngine:
             host = [_to_host(f) for f in planes]
             return np.asarray(info.finalize_arrays(host), np.float32)[None]
         return _to_host(out)
-
-    def finalize_strips(self, spec_idx: int, strip_rows: int = 256,
-                        with_state: bool = False):
-        """[(row0, row1, host strip)], strips (rows, W), or (K, rows, W)
-        with `with_state`."""
-        packed = self.finalize_packed_async(spec_idx, with_state)
-        if not with_state:
-            packed = packed[0]
-        return [(a, min(a + strip_rows, self.H),
-                 packed[..., a:min(a + strip_rows, self.H), :])
-                for a in range(0, self.H, strip_rows)]
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":

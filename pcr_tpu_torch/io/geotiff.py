@@ -616,10 +616,11 @@ class TiledGeoTiffWriter:
 class StreamingGeoTiffWriter:
     """Write a tiled planar GeoTIFF incrementally from row strips.
 
-    Purpose: overlap the device→host transfer of finalized bands with the
-    host-side tile compression — the pipeline fetches strip k while this
-    writer encodes strip k-1 (the TIFF layout puts tile data first and the
-    IFD last, so nothing needs to be known up front).
+    Purpose: encode a band's tiles as its rows arrive, so that a caller
+    producing a band in row strips overlaps its work with the compression
+    (the TIFF layout puts tile data first and the IFD last, so nothing
+    needs to be known up front). It writes the bytes write_geotiff writes;
+    the Pipeline's finalize, which holds whole bands, uses write_geotiff.
 
     Contract: bands are delivered in order (0..nb-1); within a band, rows
     arrive in order via `write_rows`. The internal buffer slices rows into

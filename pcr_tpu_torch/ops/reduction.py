@@ -539,3 +539,13 @@ def finalize_fields(info: ReductionInfo, fields) -> torch.Tensor:
         StatusCode.NotImplemented,
         f"pcr_tpu_torch: no device finalize of {rtype.name}: finalize "
         f"its fetched planes with info.finalize_arrays"))
+
+
+def _host_finalize(info: ReductionInfo, fields) -> np.ndarray:
+    """The float32 (H, W) band that `info.finalize_arrays` makes of host
+    state fields, copied where it shares memory with them (Sum's finalize
+    returns the state itself), so the band never aliases the state."""
+    out = np.asarray(info.finalize_arrays(list(fields)), np.float32)
+    if any(np.may_share_memory(out, f) for f in fields):
+        out = out.copy()
+    return out

@@ -1,8 +1,8 @@
 """
 The mesh engines behind the Pipeline API — the port's counterpart of
 pcr_tpu/parallel/engine.py. Both keep the TorchEngine surface the Pipeline
-uses (prepare_*, commit, fetch_state, load_state, finalize_packed_async,
-finalize_strips, warmup, block_until_ready), and both split the grid into
+uses (prepare_*, commit, fetch_state, load_state, finalize_to_host, warmup,
+block_until_ready), and both split the grid into
 row shards, each a TorchEngine over a shard view of the grid (`shard_view`:
 the shard's rows in its own frame, carrying the whole grid's row offset and
 height, as an out-of-core band does), so K1-K5 run unchanged on every
@@ -195,14 +195,11 @@ class _RowShards:
         parts = [eng.fetch_state(spec_idx) for eng in self.owners]
         return [np.concatenate(f) for f in zip(*parts)]
 
-    def finalize_packed_async(self, spec_idx: int, with_state: bool = False):
+    def finalize_to_host(self, spec_idx: int, with_state: bool = False):
         """Host (K, H, W) raw state planes (`with_state`) or the (1, H, W)
         finalized band, each shard finalized on its device."""
-        return np.concatenate([eng.finalize_packed_async(spec_idx, with_state)
+        return np.concatenate([eng.finalize_to_host(spec_idx, with_state)
                                for eng in self.owners], axis=1)
-
-    finalize_strips = TorchEngine.finalize_strips
-    finalize_band = TorchEngine.finalize_band
 
     def _engines_by_device(self):
         return {eng.device: eng for eng in self.owners}.values()

@@ -1210,14 +1210,12 @@ def test_device_cloud_staged_once_on_the_card(card, monkeypatch):
     card_vs_cpu({pcr.ExecutionMode.GPU: p, pcr.ExecutionMode.CPU: o})
 
 
-def test_strip_finalize_geotiff_on_the_card(card, monkeypatch, tmp_path):
-    """The strip finalize (PCR_PACK_MAX_BYTES=1) streaming its GeoTIFF:
-    Count + Max write the bytes CPU mode writes; an Average's file is the
-    bytes write_geotiff makes of the card's band, which is within 1e-5 of
-    CPU mode's."""
+def test_finalize_geotiff_on_the_card(card, monkeypatch, tmp_path):
+    """The finalize writing its GeoTIFF: Count + Max write the bytes CPU
+    mode writes; an Average's file is the bytes write_geotiff makes of the
+    card's band, which is within 1e-5 of CPU mode's."""
     from pcr_tpu_torch.io.geotiff import write_geotiff
     monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
-    monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
     gc = make_grid_config(w=700.0, h=600.0, tile=256)
     c = make_cloud(200_000, seed=11, w=500.0, h=600.0)   # a column idle
     for name, specs, exact in (
@@ -1272,8 +1270,7 @@ def test_degenerate_grids_count_on_the_card(card, w, h, monkeypatch):
                      .band_array(0)) == 100_000
 
 
-@pytest.mark.parametrize("strips", [False, True])
-def test_the_ports_spans_time_the_finalize_copy_on_the_card(card, strips,
+def test_the_ports_spans_time_the_finalize_copy_on_the_card(card,
                                                             monkeypatch):
     """Under torch.profiler the finalize's copy to the host gets device
     seconds from its CUDA events (resolved by snapshot) and its bytes are
@@ -1281,8 +1278,6 @@ def test_the_ports_spans_time_the_finalize_copy_on_the_card(card, strips,
     layout's size is one synchronisation, the only one of a first call."""
     from pcr_tpu_torch.utils import profiling
     monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
-    if strips:
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
     gc = make_grid_config(w=1000.0, h=1000.0)
     p = pcr.Pipeline.create(pcr.PipelineConfig(
         grid=gc, reductions=[pcr.ReductionSpec(value_channel="v",
@@ -1311,9 +1306,7 @@ def pinned(band) -> bool:
     return torch.from_numpy(np.asarray(band)).is_pinned()
 
 
-@pytest.mark.parametrize("strips", [False, True], ids=["packed", "strips"])
-def test_the_finalize_band_lands_pinned_on_the_card(card, strips,
-                                                    monkeypatch):
+def test_the_finalize_band_lands_pinned_on_the_card(card, monkeypatch):
     """A card's finalize band is the pinned block its one copy landed in:
     under torch.profiler `d2h_pinned_bytes` equals `d2h_bytes`, the bands'
     bytes. On a 3 x 3-tile grid whose right tile column no point touches,
@@ -1322,8 +1315,6 @@ def test_the_finalize_band_lands_pinned_on_the_card(card, strips,
     CPU mode's values within 1e-5."""
     from pcr_tpu_torch.utils import profiling
     monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
-    if strips:
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
     gc = make_grid_config(w=768.0, h=768.0, tile=256)
     specs = [pcr.ReductionSpec(value_channel="v", type=t)
              for t in (RT.Sum, RT.Average)]
@@ -1347,17 +1338,13 @@ def test_the_finalize_band_lands_pinned_on_the_card(card, strips,
     assert not np.isnan(card_p.result().band_array(0)[:, :512]).any()
 
 
-@pytest.mark.parametrize("strips", [False, True], ids=["packed", "strips"])
-def test_a_held_band_is_not_aliased_by_later_jobs(card, strips,
-                                                  monkeypatch):
+def test_a_held_band_is_not_aliased_by_later_jobs(card, monkeypatch):
     """A pinned block goes back to torch's cache only when its band is
     dropped, so a band the caller holds is never the landing place of a
     later copy: job 1's band stays bit for bit what it was while jobs 2
     and 3 on the same grid, with other points, finalize and drop
     theirs."""
     monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
-    if strips:
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
     gc = make_grid_config(w=1000.0, h=1000.0)
 
     def job(seed):

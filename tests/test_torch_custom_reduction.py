@@ -261,18 +261,16 @@ def test_customs_beside_builtins_on_one_pipeline(staged):
         assert np.array_equal(g, o, equal_nan=True)
 
 
-@pytest.mark.parametrize("path", ["packed", "streamed"])
-def test_custom_checkpoint_and_resume(path, monkeypatch, tmp_path):
-    """PCRT state and GeoTIFF of a custom op, by both finalize paths; a
+@pytest.mark.parametrize("cog", [False, True], ids=["tiff", "cog"])
+def test_custom_checkpoint_and_resume(cog, tmp_path):
+    """PCRT state and GeoTIFF (plain or cloud-optimized) of a custom op; a
     second pipeline resumes the state and continues as the oracle."""
-    if path == "streamed":
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
     register("sum_k3")
     specs = [custom("sum_k3")]
     sd = str(tmp_path / "state")
     tif = str(tmp_path / "out.tif")
     _, first = run(port, GPU, specs, [cloud(seed=5)], state_dir=sd,
-                   output_path=tif)
+                   output_path=tif, write_cog=cog)
     assert np.array_equal(port.read_geotiff_band(tif, 0), first[0],
                           equal_nan=True)
     _, got = run(port, GPU, specs, [cloud(seed=6)], state_dir=sd)

@@ -1,8 +1,10 @@
-"""tests/test_finalize_paths.py on the port: whichever way the device
-finalize takes (one packed copy for small grids, row strips for large
-ones, forced here with PCR_PACK_MAX_BYTES; raw state planes and a host
-finalize when state_dir is set), the band, the GeoTIFF and the PCRT
-checkpoint match the oracle and resume.
+"""tests/test_finalize_paths.py on the port: the port's one device
+finalize (one copy of the band, or of the raw state planes and a host
+finalize when state_dir is set) gives the band, the GeoTIFF and the PCRT
+checkpoint of the oracle, and resumes. pcr_tpu still chooses between one
+packed copy and row strips by a size its environment sets, so the twins
+run the port's path against both of the reference's (ids `ref_packed` /
+`ref_strips`).
 
 The device path runs on torch-CPU (PCR_TORCH_DEVICE=cpu). Each band is
 held against pcr_tpu's numpy oracle (exactly where the host finalizes the
@@ -34,13 +36,15 @@ def run(pkg, mode, gc, specs, clouds, **cfg):
     return p
 
 
-@pytest.mark.parametrize("packed", [True, False], ids=["packed", "strips"])
+@pytest.mark.parametrize("packed", [True, False],
+                         ids=["ref_packed", "ref_strips"])
 @pytest.mark.parametrize("with_state", [True, False],
                          ids=["state", "nostate"])
 def test_finalize_path_matches_oracle(tmp_path, monkeypatch, packed,
                                       with_state):
+    """The port's finalize against pcr_tpu's packed or strip finalize."""
     if not packed:
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")     # force strips
+        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")     # pcr_tpu's strips
     gc = make_grid_config(w=150.0, h=120.0, tile=64)
     specs = [ref.ReductionSpec(value_channel="v", type=RT.Average,
                                output_band_name="out")]
@@ -73,11 +77,11 @@ def test_finalize_path_matches_oracle(tmp_path, monkeypatch, packed,
 
 
 def test_streamed_state_multi_reduction(tmp_path, monkeypatch):
-    """Two reductions of different state widths through the strip + state
-    path: the strip heights differ per spec, the checkpoints land per
-    spec, and the bands are the oracle's bit for bit (the host finalizes
-    the same state)."""
-    monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
+    """Two reductions of different state widths with a state_dir, the
+    port's finalize beside pcr_tpu's strip + state path (whose strip
+    heights differ per spec): the checkpoints land per spec, and the bands
+    are the oracle's bit for bit (the host finalizes the same state)."""
+    monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")       # pcr_tpu's strips
     gc = make_grid_config(w=100.0, h=100.0)
     specs = [ref.ReductionSpec(value_channel="v", type=RT.Average,
                                output_band_name="avg"),
@@ -97,14 +101,15 @@ def test_streamed_state_multi_reduction(tmp_path, monkeypatch):
                     if any(f.endswith(".pcrt") for f in fs)}) == 2
 
 
-@pytest.mark.parametrize("path", ["packed", "strips"])
+@pytest.mark.parametrize("path", ["packed", "strips"],
+                         ids=["ref_packed", "ref_strips"])
 def test_gauss_corr_residue_flush(path, monkeypatch):
     """Gaussian weight sums under GAUSS_WMIN are residues and finalize to
     the empty cell's NaN; a sum at the cutoff is data and stays. The band
-    (by either finalize) and fetch_state (PCRT checkpoints) flush alike,
-    and the band is pcr_tpu's."""
+    and fetch_state (PCRT checkpoints) flush alike, and the band is
+    pcr_tpu's by either of its finalizes."""
     if path == "strips":
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
+        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")   # pcr_tpu's strips
     gc = make_grid_config(w=16.0, h=16.0)
     spec = ref.gaussian_splat_spec("v", default_sigma=1.0)
     p = make(port, GPU, [spec], gc)
@@ -134,28 +139,29 @@ def test_gauss_corr_residue_flush(path, monkeypatch):
 
 
 @pytest.mark.parametrize("touched", ["all", "some"])
-@pytest.mark.parametrize("packed", [True, False], ids=["packed", "strips"])
-def test_the_band_is_the_engines_finalize(monkeypatch, packed, touched):
+@pytest.mark.parametrize("geotiff", [False, True], ids=["band", "geotiff"])
+def test_the_band_is_the_engines_finalize(tmp_path, monkeypatch, geotiff,
+                                          touched):
     """Without a state_dir each result band is the very array the engine's
     finalize returned (on a card: the pinned block the copy landed in),
-    NaN written over the untouched tiles in place: no second band. Values
-    and NaN footprint are the oracle's (a Sum's empty cells are 0.0 in a
-    touched tile, NaN in an untouched one)."""
-    if not packed:
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")     # force strips
+    NaN written over the untouched tiles in place: no second band, with
+    or without an output file, which decodes to the bands. Values and NaN
+    footprint are the oracle's (a Sum's empty cells are 0.0 in a touched
+    tile, NaN in an untouched one)."""
+    tif = str(tmp_path / "out.tif") if geotiff else ""
     gc = make_grid_config(w=150.0, h=120.0, tile=64)      # 3 x 2 tiles
     specs = [ref.ReductionSpec(value_channel="v", type=t,
                                output_band_name=f"b{int(t)}")
              for t in (RT.Sum, RT.Average)]
     w = 150.0 if touched == "all" else 90.0   # 90: the right column idle
     clouds = [make_cloud(5000, seed=s, w=w, h=120.0) for s in (0, 1)]
-    p = make(port, GPU, specs, gc)
-    real, returned = p._engine.finalize_packed_async, []
+    p = make(port, GPU, specs, gc, output_path=tif)
+    real, returned = p._engine.finalize_to_host, []
 
     def spy(*a, **kw):
         returned.append(real(*a, **kw))
         return returned[-1]
-    monkeypatch.setattr(p._engine, "finalize_packed_async", spy)
+    monkeypatch.setattr(p._engine, "finalize_to_host", spy)
     for c in like(port, clouds):
         p.ingest(c)
     p.finalize()
@@ -166,5 +172,8 @@ def test_the_band_is_the_engines_finalize(monkeypatch, packed, touched):
         band = p.result().band_array(i)
         assert np.shares_memory(band, returned[i])
         assert_close(band, oracle[i])
+        if geotiff:
+            assert np.array_equal(port.read_geotiff_band(tif, i), band,
+                                  equal_nan=True)
     assert np.isnan(p.result().band_array(0)[:, 128:]).all() == (
         touched == "some")

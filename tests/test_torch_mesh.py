@@ -646,7 +646,7 @@ def test_fetch_state_flushes_gaussian_residues(dp):
     got = eng.fetch_state(0)
     assert got[0][40, 5] == 0.0 and got[1][40, 5] == 0.0
     assert got[1][41, 6] >= 1.5
-    band = eng.finalize_packed_async(0)[0]
+    band = eng.finalize_to_host(0)[0]
     assert np.isnan(band[40, 5]) and band[41, 6] > 0
 
 

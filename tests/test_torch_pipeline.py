@@ -170,10 +170,14 @@ def test_slice_matches_jax_and_oracle(rtype, staged):
     assert np.isnan(got[0][:, 192:]).all()      # the untouched tile column
 
 
-@pytest.mark.parametrize("path", ["packed", "streamed"])
+@pytest.mark.parametrize("path", ["packed", "streamed"],
+                         ids=["ref_packed", "ref_streamed"])
 def test_finalize_writes_checkpoint_and_geotiff(path, monkeypatch, tmp_path):
+    """The port's one finalize with a state_dir and an output file against
+    pcr_tpu's packed or streamed finalize: the same bands, files and PCRT
+    tiles."""
     if path == "streamed":
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
+        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")   # pcr_tpu's strips
     specs = [spec(RT.Average), spec(RT.Max), spec(RT.MostRecent)]
     clouds = [cloud(seed=3)]
     outs = {}

@@ -308,5 +308,5 @@ def test_dense_engine_branches_match_oracle(glyph, monkeypatch):
                 np.testing.assert_allclose(g, w, atol=2e-5)
             else:
                 assert np.array_equal(g, w, equal_nan=True)
-        band = eng.finalize_packed_async(i)[0]
+        band = eng.finalize_to_host(i)[0]
         assert band.shape == (gc.height, gc.width)

@@ -105,10 +105,9 @@ def test_row_count_mismatch_rejected(tmp_path):
         w.end_band()
 
 
-def test_repeated_pipeline_finalize_valid(tmp_path, monkeypatch):
-    """The streamed finalize (forced by PCR_PACK_MAX_BYTES=1) rewrites its
-    output on every finalize; each write must decode to the band."""
-    monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
+def test_repeated_pipeline_finalize_valid(tmp_path):
+    """The finalize rewrites its output on every finalize; each write must
+    decode to the band."""
     gc = make_grid_config(w=300.0, h=300.0, tile=128)
     rng = np.random.default_rng(4)
     n = 30000

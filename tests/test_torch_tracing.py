@@ -219,13 +219,16 @@ def test_the_arena_waits_once_a_reused_buffer():
     assert snap["spans"]["sync"]["n"] == 2
 
 
-@pytest.mark.parametrize("streamed", [False, True])
-def test_d2h_bytes_are_the_bands(streamed, monkeypatch):
-    if streamed:        # every band takes the strip-wise finalize
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "1")
-    band, _ = profiled(job)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_d2h_bytes_are_the_bands(with_state, tmp_path):
+    """One finalize.d2h a reduction: the band's bytes, or with a state_dir
+    the K = 2 state planes of an Average."""
+    cfg = {"state_dir": str(tmp_path / "state")} if with_state else {}
+    band, _ = profiled(job, **cfg)
     snap = profiling.snapshot()
-    assert snap["counters"]["d2h_bytes"] == band.nbytes == W * H * 4
+    assert band.nbytes == W * H * 4
+    planes = 2 if with_state else 1
+    assert snap["counters"]["d2h_bytes"] == planes * W * H * 4
     assert "d2h_pinned_bytes" not in snap["counters"]   # pageable off a card
     assert snap["spans"]["finalize.d2h"]["n"] == 1
     assert snap["spans"]["finalize.d2h"]["device_s"] is None   # no card
