@@ -34,7 +34,12 @@ Phases:
       bit-identical kernel reruns, a tolerance that grows with the terms
       per cell (see gauss_rtol), and both times from CUDA events; then K4
       and K2 on 200k points of mixed sign on the same grid cut into
-      256-cell tiles (the home-tile clip);
+      256-cell tiles (the home-tile clip). Each row prints a SHA-256 of
+      the kernel's output state (both fields' bits), which two versions of
+      a kernel that keep its bits must share, and each K2 row its walk as
+      `stage` counted it (gauss_kernels.gauss_walk: gauss_entries, the
+      live entries with their halo copies, and gauss_factor_cells, the
+      factors the kernel forms);
   (g) Gaussian pipelines on the 1000x1000 grid against the numpy oracle
       (1e-5 per cell, exact NaN footprint): sigma 4 Average 1M staged with
       state_dir + GeoTIFF + resume, sigma 1 WeightedAverage 1M, rotated
@@ -200,6 +205,7 @@ data-sheet peaks); the last line is
 
 import contextlib
 import functools
+import hashlib
 import json
 import os
 import shutil
@@ -586,6 +592,13 @@ def gauss_case(torch, pcr, gk, size, n, label, glyph, want_kind, seed,
           f"{label}: reruns are not bit-identical")
     check(torch.equal(got[1] > 0, ref[1] > 0),
           f"{label}: touched footprints differ")
+    digest = hashlib.sha256(b"".join(
+        g.cpu().numpy().tobytes() for g in got)).hexdigest()
+    walk = ""
+    if chunk.kind == "gauss":
+        entries, factors = chunk.walk
+        walk = (f"gauss_entries={entries} gauss_factor_cells={factors} "
+                f"factors_per_entry={factors / entries:.2f} ")
     r = int(min(np.ceil(3 * glyph.get("default_sigma_x",
                                       glyph.get("default_sigma", 1.0))),
                 32))
@@ -628,7 +641,8 @@ def gauss_case(torch, pcr, gk, size, n, label, glyph, want_kind, seed,
     print(f"(f) {label}: {chunk.kind} th={chunk.th} wt={chunk.wt} "
           f"cut={chunk.cut} nsub={pr.shape[0]} slices={plan.slices} "
           f"smem={plan.smem_bytes} walk_hits="
-          f"{walk_hits(torch, gk, chunk, eng.geom, ncb)} rtol={rtol:.3g} "
+          f"{walk_hits(torch, gk, chunk, eng.geom, ncb)} {walk}"
+          f"state_sha256={digest} rtol={rtol:.3g} "
           f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
           f"window_cells={cells:.0f} bound_ms={bms!r} ({by}) "
           f"(turns: {turns})")

@@ -38,7 +38,9 @@ cells, and a warp evaluates only the entries whose clipped window shares a
 cell with its block. `splat_plan` is the launch's geometry, which the
 wrappers hand to the kernels; `gauss_windows` / `rot_dense_windows` are the
 clipped windows the kernels form once per entry (the plain versions mask
-with the same ones), and `block_hits` is the walk's hit test.
+with the same ones), and `block_hits` is the walk's hit test. `gauss_walk`
+and `rot_walk` count a chunk's live entries and the work the kernel does
+for them: K2's factors, K4 / K5's window cells.
 
 `geom` (a GaussGeom) carries the grid the masks need: the logical (H, W),
 the home-tile clip of multi-tile grids, and a row-offset view's frame.
@@ -54,9 +56,9 @@ import torch
 from . import _build
 from .kernels import BLOCK
 
-__all__ = ["GaussGeom", "ROT_CUT", "SplatPlan", "block_hits", "gauss_windows",
-           "rot_dense_windows", "rot_distances", "rot_splat_dense",
-           "rot_splat_dense_plain", "rot_splat_packed",
+__all__ = ["GaussGeom", "ROT_CUT", "SplatPlan", "block_hits", "gauss_walk",
+           "gauss_windows", "rot_dense_windows", "rot_distances",
+           "rot_splat_dense", "rot_splat_dense_plain", "rot_splat_packed",
            "rot_splat_packed_plain", "rot_walk", "sorted_splat_gauss",
            "sorted_splat_gauss_plain", "splat_plan"]
 
@@ -66,18 +68,31 @@ WMIN = 1e-6                 # the reference's weight cutoff
 _PLAIN_BUDGET = {"cpu": 1 << 22, "cuda": 1 << 26}
 
 # The walk's shapes (csrc/splat_walk.cuh): a CTA's slice of a tile, the
-# block of a warp, the entries staged at a time, and Hopper's shared memory
-# per CTA.
+# block of a warp, the entries staged at a time (K4 / K5 and K2's walk of
+# wide windows: PIECE; K2's walk with factor tables: GAUSS_PIECE, one a
+# thread), the factor slots a K2 table round forms at most, and Hopper's
+# shared memory per CTA.
 SLICE_ROWS, SLICE_COLS = 8, 128
 WARP_COLS = 32
 THREADS = 128
 PIECE = 256
+GAUSS_PIECE = THREADS
+GAUSS_TABLE = 1600
 SMEM_LIMIT = 232_448
-# words of shared memory per staged entry: its segments, its window for
-# the ballot, and the records the walk reads (K2: the column record, the
-# column range, 8 wy; K4 / K5: the column and row records, 8 dy)
-_SMEM_WORDS = {"gauss": 8 + 4 + (4 + 2 + 8), "rot": 9 + 4 + (4 + 4 + 8),
-               "rotp": 12 + 4 + (4 + 4 + 8)}
+# shared memory of a launch in bytes. K4 / K5, per staged entry: its
+# segments, its window for the ballot, and the records the walk reads (the
+# column and row records, 8 dy). K2, the larger of its two walks': with
+# factor tables, per staged entry its segments, its column and row records,
+# and per live entry its first slot, its walk record and its 8 wy, then the
+# factor table with a 4-byte descriptor a slot, and the warps' slot and
+# live-entry counts; forming wx in the walk, per staged entry its segments,
+# its window for the ballot, the column record and range, and 8 wy
+_SMEM_BYTES = {
+    "gauss": max((8 + 8 + 1 + 4 + 8) * GAUSS_PIECE * 4
+                 + GAUSS_TABLE * (4 + 4) + 2 * THREADS // 32 * 4,
+                 (8 + 4 + (4 + 2 + 8)) * PIECE * 4),
+    "rot": (9 + 4 + (4 + 4 + 8)) * PIECE * 4,
+    "rotp": (12 + 4 + (4 + 4 + 8)) * PIECE * 4}
 
 
 @dataclass(frozen=True)
@@ -85,7 +100,8 @@ class SplatPlan:
     """One launch of K2 / K4 / K5 over (th, wt) tiles: `slices` CTAs a
     tile run (grid = nsub x slices, only a run's first sub-chunk's CTAs
     work), `threads` a CTA, and `smem_bytes` of dynamic shared memory (one
-    staged piece of the entries' segments, windows and records)."""
+    staged piece of the entries' segments, windows and records; K2's
+    factor table besides)."""
     slices: int
     threads: int
     smem_bytes: int
@@ -102,7 +118,7 @@ def splat_plan(kind: str, th: int, wt: int) -> SplatPlan:
         raise ValueError(f"{kind}: the kernel takes th % {SLICE_ROWS} == 0 "
                          f"and wt % {SLICE_COLS} == 0, got ({th}, {wt})")
     slices = (th // SLICE_ROWS) * (wt // SLICE_COLS)
-    smem = _SMEM_WORDS[kind] * PIECE * 4
+    smem = _SMEM_BYTES[kind]
     if smem > SMEM_LIMIT or slices > 65_535:
         raise ValueError(f"{kind}: ({th}, {wt}) tiles need {smem} B of "
                          f"shared memory and {slices} slices")
@@ -169,21 +185,24 @@ def _lib():
         lib = _build.load()
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.pcr_sorted_splat_gauss.argtypes = (
-            [vp, vp, i64, vp, vp] + [i32] * 16 + [vp])
+            [vp, vp, i64, vp, vp] + [i32] * 17 + [vp])
         lib.pcr_rot_splat_dense.argtypes = (
             [vp, vp, i64, vp, vp] + [i32] * 15 + [vp])
         lib.pcr_rot_splat_packed.argtypes = (
             [vp, vp, i64, vp, vp] + [i32] * 8 + [vp])
         sizes = (lib.pcr_sorted_splat_gauss_block, lib.pcr_rot_splat_block,
-                 lib.pcr_sorted_splat_gauss_piece, lib.pcr_rot_splat_piece)
+                 lib.pcr_sorted_splat_gauss_piece, lib.pcr_rot_splat_piece,
+                 lib.pcr_sorted_splat_gauss_table)
         for fn in (lib.pcr_sorted_splat_gauss, lib.pcr_rot_splat_dense,
                    lib.pcr_rot_splat_packed, *sizes):
             fn.restype = i32
         for fn in sizes:
             fn.argtypes = []
-        if [fn() for fn in sizes] != [BLOCK, BLOCK, PIECE, PIECE]:
-            raise RuntimeError("gauss_kernels: the kernels' block or piece "
-                               "size differs from BLOCK / PIECE")
+        if [fn() for fn in sizes] != [BLOCK, BLOCK, GAUSS_PIECE, PIECE,
+                                      GAUSS_TABLE]:
+            raise RuntimeError("gauss_kernels: the kernels' block, piece or "
+                               "table size differs from BLOCK / PIECE / "
+                               "GAUSS_PIECE / GAUSS_TABLE")
         _BOUND = lib
     return _BOUND
 
@@ -238,9 +257,13 @@ def _tiles(states, wt, th):
 # -- K2 ---------------------------------------------------------------------
 
 def sorted_splat_gauss(states, params: torch.Tensor, bids: torch.Tensor, *,
-                       th: int, wt: int, cut: bool, geom: GaussGeom) -> None:
+                       th: int, wt: int, cut: bool, geom: GaussGeom,
+                       rmax: int = -1) -> None:
     """K2: fold every live entry's separable footprint into `states`, in
-    place (1 field: Sum / Count; 2: Average / WeightedAverage)."""
+    place (1 field: Sum / Count; 2: Average / WeightedAverage). `rmax`, the
+    largest radius of the entries (-1: not known), picks one of the card's
+    two kernels (factor tables for narrow windows); both give the same
+    bits."""
     dev = _check("sorted_splat_gauss", states, params, bids, th, wt, 8,
                  torch.int32)
     if dev.type == "cpu":
@@ -250,7 +273,7 @@ def sorted_splat_gauss(states, params: torch.Tensor, bids: torch.Tensor, *,
     plan = _plan_args("sorted_splat_gauss", "gauss", params, th, wt)
     _, w_pad, ncb, nb_total = _tiles(states, wt, th)
     _launch("sorted_splat_gauss", _lib().pcr_sorted_splat_gauss, states,
-            params, bids, [int(cut), th, wt, ncb, nb_total, w_pad]
+            params, bids, [int(cut), rmax, th, wt, ncb, nb_total, w_pad]
             + geom.args() + plan)
     sorted_splat_gauss.launches += 1
 
@@ -326,10 +349,12 @@ def gauss_windows(icx, icy, r, geom: GaussGeom):
 
 def sorted_splat_gauss_plain(states, params: torch.Tensor,
                              bids: torch.Tensor, *, th: int, wt: int,
-                             cut: bool, geom: GaussGeom) -> None:
+                             cut: bool, geom: GaussGeom,
+                             rmax: int = -1) -> None:
     """K2's plain PyTorch version: every live entry's factors over its
     +-r window, cut to its tile and masked as the kernel masks them, added
-    term by term with `index_add_`, in place."""
+    term by term with `index_add_`, in place. `rmax` picks the card's
+    kernel and changes nothing here."""
     p, row0, col0 = _entries(states, params, bids, th, wt,
                              lambda p: p[:, 6] >= 0)
     if not len(p):
@@ -466,7 +491,27 @@ def rot_dense_windows(icx, icy, r, geom: GaussGeom):
     return wlo, whi, rlo, rhi
 
 
-_WALK_SUBS = 1 << 12    # sub-chunks rot_walk reads at a time
+_WALK_SUBS = 1 << 10    # sub-chunks a walk count reads at a time
+
+
+def _walk_totals(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
+                 shape, work) -> tuple:
+    """(entries, work) summed over a chunk's runs on state fields of
+    `shape` (H_pad, W_pad), _WALK_SUBS sub-chunks at a time:
+    `work(p, run, row0, col0)` gives the live entries of sub-chunks `p`
+    and each one's work, where `run` marks a run on the grid and (row0,
+    col0) is its tile's first cell. Reads the device once."""
+    h_pad, w_pad = shape
+    ncb = w_pad // wt
+    nb_total = h_pad // th * ncb
+    totals = torch.zeros(2, dtype=torch.int64, device=params.device)
+    for a in range(0, params.shape[0], _WALK_SUBS):
+        p = params[a:a + _WALK_SUBS]
+        b = bids[a:a + _WALK_SUBS, None].long()
+        alive, n = work(p, (b >= 0) & (b < nb_total), b // ncb * th,
+                        b % ncb * wt)
+        totals += torch.stack([alive.sum(), n.sum()])
+    return tuple(totals.tolist())
 
 
 def rot_walk(kind: str, params: torch.Tensor, bids: torch.Tensor, th: int,
@@ -477,15 +522,7 @@ def rot_walk(kind: str, params: torch.Tensor, bids: torch.Tensor, th: int,
     rot_dense_windows, which reads `geom`; K5: the host-clipped window)
     cut to their tiles, summed: the cells the kernel evaluates. Reads the
     device once."""
-    h_pad, w_pad = shape
-    ncb = w_pad // wt
-    nb_total = h_pad // th * ncb
-    totals = torch.zeros(2, dtype=torch.int64, device=params.device)
-    for a in range(0, params.shape[0], _WALK_SUBS):
-        p = params[a:a + _WALK_SUBS]
-        b = bids[a:a + _WALK_SUBS, None].long()
-        run = (b >= 0) & (b < nb_total)
-        row0, col0 = (b // ncb * th).float(), (b % ncb * wt).float()
+    def work(p, run, row0, col0):
         if kind == "rot":
             alive = run & (p[:, 8] >= 0)
             wlo, whi, rlo, rhi = rot_dense_windows(p[:, 6], p[:, 7], p[:, 8],
@@ -493,13 +530,40 @@ def rot_walk(kind: str, params: torch.Tensor, bids: torch.Tensor, th: int,
         else:
             wlo, whi, rlo, rhi = p[:, 6], p[:, 7], p[:, 8], p[:, 9]
             alive = run & (wlo <= whi) & (rlo <= rhi)
+        row0, col0 = row0.float(), col0.float()
         nx = (torch.minimum(whi, col0 + (wt - 1))
               - torch.maximum(wlo, col0) + 1).clamp(min=0)
         ny = (torch.minimum(rhi, row0 + (th - 1))
               - torch.maximum(rlo, row0) + 1).clamp(min=0)
-        cells = torch.where(alive, nx * ny, 0.0).long()
-        totals += torch.stack([alive.sum(), cells.sum()])
-    return tuple(totals.tolist())
+        return alive, torch.where(alive, nx * ny, 0.0).long()
+    return _walk_totals(params, bids, th, wt, shape, work)
+
+
+def gauss_walk(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
+               shape, geom: GaussGeom) -> tuple:
+    """(entries, factors) of a K2 chunk over state fields of `shape`
+    (H_pad, W_pad): the live entries of its runs (r >= 0), halo copies
+    included, and the factors they need: in each 8 x 128 slice of its tile
+    that its window (gauss_windows) meets, a wx for each of the window's
+    columns in the slice and a wy for each of its rows in the slice. K2's
+    walk with factor tables (narrow windows) forms each once; its other
+    walk forms wx in each warp block a window meets. On a 128-wide tile
+    that is, for every 8-row slice the window meets, its columns in the
+    tile plus its rows in the slice. Reads the device once."""
+    def work(p, run, row0, col0):
+        alive = run & (p[:, 6] >= 0)
+        clo, chi, rlo, rhi = gauss_windows(p[:, 0], p[:, 1], p[:, 6], geom)
+        xlo = torch.maximum(clo, col0)
+        xhi = torch.minimum(chi, col0 + (wt - 1))
+        ylo = torch.maximum(rlo, row0)
+        yhi = torch.minimum(rhi, row0 + (th - 1))
+        met = alive & (xlo <= xhi) & (ylo <= yhi)
+        # the slices met and the window's columns and rows in the tile
+        ncs = (xhi - col0) // SLICE_COLS - (xlo - col0) // SLICE_COLS + 1
+        nrs = (yhi - row0) // SLICE_ROWS - (ylo - row0) // SLICE_ROWS + 1
+        factors = nrs * (xhi - xlo + 1) + ncs * (yhi - ylo + 1)
+        return alive, torch.where(met, factors, 0)
+    return _walk_totals(params, bids, th, wt, shape, work)
 
 
 def rot_splat_dense_plain(states, params: torch.Tensor, bids: torch.Tensor,

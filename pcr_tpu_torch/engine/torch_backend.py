@@ -69,9 +69,10 @@ of "finalize.d2h"; every host synchronisation,
 the arena's wait for a buffer included, through device_prep.sync.
 (Out-of-core band swaps copy into host bands of their own and count them
 in OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
-"rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk), which the
-chunk's layout counted where a profiler recorded or the chunk was being
-staged (`staging`): a commit reads nothing of the device for them.
+"rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk) and a K2
+chunk's "gauss_entries" and "gauss_factor_cells" (gauss_kernels.gauss_walk),
+which the chunk's layout counted where a profiler recorded or the chunk was
+being staged (`staging`): a commit reads nothing of the device for them.
 """
 
 from __future__ import annotations
@@ -141,8 +142,9 @@ class StagedChunk:
 
     `ready` is the event of the upload the tensors came from (None on the
     CPU): `commit` makes its stream wait on it. `walk` is a K4 / K5
-    chunk's (entries, window cells) where its layout counted them
-    (TorchEngine._counted)."""
+    chunk's (entries, window cells), or a K2 chunk's (entries, factors),
+    where its layout counted them (TorchEngine._counted). `rmax` is a K2
+    chunk's largest radius, which picks the kernel's walk."""
     kind: str
     params: torch.Tensor
     bids: torch.Tensor | None
@@ -152,17 +154,22 @@ class StagedChunk:
     cut: bool = False
     ready: object = None
     walk: tuple | None = None
+    rmax: int = -1
 
 
 _STAGING = contextvars.ContextVar("pcr_tpu_torch_staging", default=False)
+# the counters a commit adds from a chunk's `walk`, by kind
+_WALK_COUNTERS = {"gauss": ("gauss_entries", "gauss_factor_cells"),
+                  "rot": ("rot_entries", "rot_window_cells"),
+                  "rotp": ("rot_entries", "rot_window_cells")}
 
 
 @contextlib.contextmanager
 def staging():
-    """The block stages clouds (Pipeline.stage): the K4 / K5 chunks laid
-    out in it count their walk then, so that no later commit of them reads
-    the device for its counters. A thread the block hands work to runs it
-    in a copy of the block's context (contextvars.copy_context)."""
+    """The block stages clouds (Pipeline.stage): the K2 / K4 / K5 chunks
+    laid out in it count their walk then, so that no later commit of them
+    reads the device for its counters. A thread the block hands work to
+    runs it in a copy of the block's context (contextvars.copy_context)."""
     token = _STAGING.set(True)
     try:
         yield
@@ -667,7 +674,7 @@ class TorchEngine:
         return StagedChunk("point", params, bids, n, TH, self.WT, ready=ev)
 
     def _layout_upload(self, kind, eb, nblocks, segs, idx, n, th, wt,
-                       cut=False, dtype=torch.int32):
+                       cut=False, dtype=torch.int32, rmax=-1):
         """The host layout of one chunk (layout_tiles), packed straight
         into a pinned buffer where the native library does the packing,
         and its upload as a tiled chunk."""
@@ -685,7 +692,7 @@ class TorchEngine:
         E = len(segs) * nsub * BLOCK
         return StagedChunk(kind,
                            dev[:E].view(dtype).view(nsub, len(segs), BLOCK),
-                           dev[E:], n, th, wt, cut, ev)
+                           dev[E:], n, th, wt, cut, ev, rmax=rmax)
 
     # -- Gaussian --------------------------------------------------------------
 
@@ -698,8 +705,8 @@ class TorchEngine:
         with K2's product cutoff); K5, the windowed rotated splat, for
         rotated (or otherwise dense) splats with r <= ROTP_RMAX; K4, the
         dense rotated splat, for the rest. Returns a namespace (kind, th,
-        wt, cut, cap): `cap` the most points a chunk may hold, by the
-        worst case of their halo copies."""
+        wt, cut, cap, rmax): `cap` the most points a chunk may hold, by the
+        worst case of their halo copies; `rmax` the largest radius."""
         any_valid = len(r_v) > 0
         corr = ()
         dense = rotated or (any_valid and gauss_product_cutoff_bites(
@@ -720,7 +727,8 @@ class TorchEngine:
             wt = gauss_col_tile(self.W, rmax)
         kmax = (2 * rmax // th + 2) * (2 * rmax // wt + 2)
         return SimpleNamespace(kind=kind, th=th, wt=wt, cut=bool(corr),
-                               cap=max(WIRE_ENTRY_BUDGET // kmax, 1))
+                               cap=max(WIRE_ENTRY_BUDGET // kmax, 1),
+                               rmax=rmax)
 
     def prepare_gaussian(self, spec_idx: int, gp, valid, values,
                          wire_cheap: bool = False):
@@ -899,17 +907,25 @@ class TorchEngine:
         if plan.kind != "gauss":
             params = params.view(torch.float32)
         return self._counted(StagedChunk(plan.kind, params, bids, m, plan.th,
-                                         plan.wt, plan.cut, ev))
+                                         plan.wt, plan.cut, ev,
+                                         rmax=plan.rmax))
 
     def _counted(self, chunk: StagedChunk) -> StagedChunk:
-        """`chunk`, a K4 / K5 one with its walk counted
-        (gauss_kernels.rot_walk, one device read) where a profiler records
-        or the chunk is being staged: the counters commit adds."""
-        if chunk.kind in ("rot", "rotp") and (profiling.recording()
-                                              or _STAGING.get()):
+        """`chunk`, a K2 / K4 / K5 one with its walk counted
+        (gauss_kernels.gauss_walk / rot_walk, one device read) where a
+        profiler records or the chunk is being staged: the counters commit
+        adds."""
+        if not (profiling.recording() or _STAGING.get()):
+            return chunk
+        shape = (self.H_pad, self.W_state)
+        if chunk.kind == "gauss":
+            chunk.walk = gauss_kernels.gauss_walk(
+                chunk.params, chunk.bids, chunk.th, chunk.wt, shape,
+                self.geom)
+        elif chunk.kind in ("rot", "rotp"):
             chunk.walk = gauss_kernels.rot_walk(
                 chunk.kind, chunk.params, chunk.bids, chunk.th, chunk.wt,
-                (self.H_pad, self.W_state), self.geom)
+                shape, self.geom)
         return chunk
 
     def _gauss_host_chunk(self, info, plan, gp, valid, values):
@@ -943,7 +959,7 @@ class TorchEngine:
                               ncb)
         return self._counted(self._layout_upload(
             plan.kind, eb, nrb * ncb, segs, idx, n, th, wt, cut=plan.cut,
-            dtype=dtype))
+            dtype=dtype, rmax=plan.rmax))
 
     def _prepare_rotp(self, gp, valid, r, f0, n):
         """K5's chunk (TpuEngine._prepare_gaussian_rotp, :1808-1867): the
@@ -1151,8 +1167,9 @@ class TorchEngine:
                     kernel, _, kw = self.splat_fns(chunk)
                     kernel(st, p, chunk.bids, **kw)
                     if chunk.walk is not None:
-                        profiling.count("rot_entries", chunk.walk[0])
-                        profiling.count("rot_window_cells", chunk.walk[1])
+                        for name, n in zip(_WALK_COUNTERS[chunk.kind],
+                                           chunk.walk):
+                            profiling.count(name, n)
                     continue
                 cells = p[0].long()
                 values = p[1].view(torch.float32)
@@ -1191,7 +1208,8 @@ class TorchEngine:
                     dict(kw, with_f1=chunk.params.shape[1] == 4))
         if chunk.kind == "gauss":
             return (sorted_splat_gauss, gauss_kernels.sorted_splat_gauss_plain,
-                    dict(kw, cut=chunk.cut, geom=self.geom))
+                    dict(kw, cut=chunk.cut, geom=self.geom,
+                         rmax=chunk.rmax))
         if chunk.kind == "rect":
             return rect_splat, line_kernels.rect_splat_plain, kw
         if chunk.kind == "rot":

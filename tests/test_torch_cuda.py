@@ -301,6 +301,17 @@ def test_a_staged_rotated_chunk_counts_its_walk_as_on_the_cpu(card, glyph):
     assert chunk.walk[0] >= 200_000 and chunk.walk[1] > chunk.walk[0]
 
 
+@pytest.mark.parametrize("glyph", ["s1", "s4"])
+def test_a_staged_gauss_chunk_counts_its_walk_as_on_the_cpu(card, glyph):
+    """`stage` counts a K2 chunk's entries and factors on the card; the
+    same count of the chunk's bytes on the CPU agrees."""
+    eng, chunk = gauss_chunk(card, glyph, 200_000, False)
+    cpu = gk.gauss_walk(chunk.params.cpu(), chunk.bids.cpu(), chunk.th,
+                        chunk.wt, (eng.H_pad, eng.W_state), eng.geom)
+    assert chunk.walk == cpu
+    assert chunk.walk[0] >= 200_000 and chunk.walk[1] > chunk.walk[0]
+
+
 @pytest.mark.parametrize("glyph", list(GLYPHS))
 def test_gauss_pipeline_on_the_card_matches_oracle(card, glyph, monkeypatch):
     monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)

@@ -382,23 +382,37 @@ def tile_shapes(kind):
 def test_splat_plan_covers_every_tile_within_shared_memory(kind):
     """The slices of a plan tile the (th, wt) tile exactly (each cell one
     owner), the grid is one column of slices per sub-chunk, and a staged
-    piece with its windows and records fits Hopper's 227 KB."""
+    piece with its windows and records fits Hopper's 227 KB; K2's, the
+    larger of its two walks' (one with a factor table), fits eight CTAs on
+    an SM (228 KB, 1 KB of it kept for each CTA)."""
     shapes = tile_shapes(kind)
     if kind == "gauss":
         assert {th for th, _ in shapes} == {32, 64, 128}
         assert {wt for _, wt in shapes} == {128, 256}
     # per entry: its segments, 4 window words, then K2's column record,
-    # column range and 8 wy, or K4 / K5's two records and 8 dy
+    # column range and 8 wy, or K4 / K5's two records and 8 dy; K2 with
+    # factor tables: its segments, its column and row records, its first
+    # slot, its walk record and 8 wy, then a float and a 4-byte descriptor
+    # a table slot, and a slot and a live-entry count a warp
     words = {"gauss": 8 + 4 + 4 + 2 + 8, "rot": 9 + 4 + 4 + 4 + 8,
              "rotp": 12 + 4 + 4 + 4 + 8}[kind]
+    table = ((8 + 8 + 1 + 4 + 8) * gk.GAUSS_PIECE * 4 + 8 * gk.GAUSS_TABLE
+             + 2 * 4 * 4)
     for th, wt in shapes:
         plan = gk.splat_plan(kind, th, wt)
         assert plan.slices * gk.SLICE_ROWS * gk.SLICE_COLS == th * wt
         assert plan.threads == gk.SLICE_COLS == 4 * gk.WARP_COLS
         assert plan.grid(77) == (77, plan.slices)
-        assert plan.smem_bytes == words * gk.PIECE * 4
+        if kind == "gauss":
+            assert plan.smem_bytes == max(table, words * gk.PIECE * 4)
+        else:
+            assert plan.smem_bytes == words * gk.PIECE * 4
         assert plan.smem_bytes <= gk.SMEM_LIMIT == 227 * 1024
+        if kind == "gauss":
+            assert 8 * (plan.smem_bytes + 1024) <= 228 * 1024
     assert gk.BLOCK % gk.PIECE == 0 and gk.PIECE % 32 == 0
+    assert gk.GAUSS_PIECE == gk.THREADS <= 128     # one a thread, 7 bits
+    assert gk.GAUSS_TABLE >= 8 + gk.SLICE_COLS      # any one entry a round
 
 
 @pytest.mark.parametrize("th,wt", [(0, 128), (12, 128), (32, 64), (32, 192),

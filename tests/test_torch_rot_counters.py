@@ -1,13 +1,19 @@
-"""The port's K4 / K5 counters (`rot_entries`, `rot_window_cells`) on its
-device path on torch-CPU (PCR_TORCH_DEVICE=cpu).
+"""The port's walk counters on its device path on torch-CPU
+(PCR_TORCH_DEVICE=cpu): K4 / K5's `rot_entries` / `rot_window_cells` and
+K2's `gauss_entries` / `gauss_factor_cells`.
 
 Under a profiler a commit of a rotated chunk adds its live entries (halo
 copies included) and the cells of their windows cut to their tiles: K4's
 windows are gauss_kernels.rot_dense_windows, K5's the host-clipped ones
-its planes carry. `stage` counts them when it lays the chunks out, so an
+its planes carry. A commit of a K2 chunk adds its live entries and, for
+every 8 x 128 slice of its tile that an entry's window meets, a wx for
+each of the window's columns there and a wy for each of its rows
+(gauss_kernels.gauss_walk, held here against a loop over the entries and
+the slices). `stage` counts them when it lays the chunks out, so an
 ingest of a staged cloud reads nothing of the device for them; a
 host-sourced ingest counts them only while a profiler records. Staged and
-host-sourced ingests of one cloud count alike, by either layout route.
+host-sourced ingests of one cloud count alike, by either layout route. A
+K2 chunk carries its largest radius too, which picks the card's walk.
 """
 
 import numpy as np
@@ -16,6 +22,7 @@ import torch
 
 import pcr_tpu_torch as pcr
 from pcr_tpu_torch.engine import gauss_kernels
+from pcr_tpu_torch.engine.torch_backend import _WALK_COUNTERS
 from pcr_tpu_torch.utils import profiling
 
 # the first multi-threaded float32 exp of a process can read up to 1e-4
@@ -24,8 +31,17 @@ torch.exp(torch.linspace(-20.0, 0.0, 1 << 20))
 
 W, H, TILE = 150, 100, 64
 # the upstream's anisotropic glyph (sigma 10 x 2.5 m, rotated): a cap of
-# 40 cells gives r = 30 (K4), a cap of 16 gives r = 16 (K5)
-KERNELS = {"rot": 40.0, "rotp": 16.0}
+# 40 cells gives r = 30 (K4), a cap of 16 gives r = 16 (K5); sigma 4
+# (r = 12) takes K2
+ROTATED = dict(default_sigma_x=10.0, default_sigma_y=2.5,
+               default_rotation=0.5235987755982988)
+KERNELS = {"rot": dict(ROTATED, max_radius_cells=40.0),
+           "rotp": dict(ROTATED, max_radius_cells=16.0),
+           "gauss": dict(default_sigma=4.0)}
+RADIUS = {"rot": 30, "rotp": 16, "gauss": 12}
+# K2's walk cases: sigma, the routing's product cutoff, the grid's tile
+CASES = {"s1_cut": (1.0, True, 4096), "s4": (4.0, False, 4096),
+         "s4_tiles": (4.0, False, TILE)}
 
 
 @pytest.fixture(autouse=True)
@@ -36,18 +52,16 @@ def on_cpu(monkeypatch):
     profiling.reset()
 
 
-def pipeline(cap, **cfg):
+def pipeline(glyph, tile=TILE, **cfg):
     b = pcr.BBox()
     b.min_x, b.min_y, b.max_x, b.max_y = 0.0, 0.0, float(W), float(H)
     gc = pcr.GridConfig(bounds=b, cell_size_x=1.0, cell_size_y=-1.0,
-                        tile_width=TILE, tile_height=TILE,
+                        tile_width=tile, tile_height=tile,
                         crs=pcr.CRS.from_epsg(3857))
     gc.compute_dimensions()
     c = pcr.PipelineConfig()
     c.grid = gc
-    c.reductions = [pcr.gaussian_splat_spec(
-        "v", default_sigma_x=10.0, default_sigma_y=2.5,
-        default_rotation=0.5235987755982988, max_radius_cells=cap)]
+    c.reductions = [pcr.gaussian_splat_spec("v", **glyph)]
     c.exec_mode = pcr.ExecutionMode.GPU
     for k, v in cfg.items():
         setattr(c, k, v)
@@ -71,15 +85,19 @@ def profiled(fn, *args):
         return fn(*args)
 
 
-def counters():
+def counters(kind="rot"):
     c = profiling.snapshot()["counters"]
-    return c.get("rot_entries"), c.get("rot_window_cells")
+    return tuple(c.get(name) for name in _WALK_COUNTERS[kind])
 
 
 def by_hand(engine, chunk):
-    """(entries, window cells) of a staged chunk, entry by entry: a live
-    entry (K4: r >= 0; K5: a window that is not empty) in a run of a tile
-    of the state, and its window cut to that tile."""
+    """(entries, window cells) of a staged K4 / K5 chunk, entry by entry:
+    a live entry (K4: r >= 0; K5: a window that is not empty) in a run of a
+    tile of the state, and its window cut to that tile; a K2 chunk's
+    (entries, factors) by gauss_by_hand."""
+    if chunk.kind == "gauss":
+        return gauss_by_hand(engine, chunk.params, chunk.bids, chunk.th,
+                             chunk.wt)
     th, wt = chunk.th, chunk.wt
     ncb = engine.W_state // wt
     nb = engine.H_pad // th * ncb
@@ -107,6 +125,35 @@ def by_hand(engine, chunk):
     return entries, cells
 
 
+def gauss_by_hand(engine, params, bids, th, wt):
+    """(entries, factors) of a K2 chunk, entry by entry and slice by
+    slice: a live entry (r >= 0) in a run of a tile of the state, and in
+    every 8 x 128 slice of that tile where its window keeps a row and a
+    column, a factor for each of them."""
+    ncb = engine.W_state // wt
+    nb = engine.H_pad // th * ncb
+    p = params.numpy()
+    entries = factors = 0
+    for j, bid in enumerate(bids.tolist()):
+        if not 0 <= bid < nb:
+            continue
+        r0, c0 = bid // ncb * th, bid % ncb * wt
+        for e in range(p.shape[2]):
+            icx, icy, r = (torch.tensor(int(p[j, k, e])) for k in (0, 1, 6))
+            if r < 0:
+                continue
+            entries += 1
+            clo, chi, rlo, rhi = (int(w) for w in gauss_kernels.gauss_windows(
+                icx, icy, r, engine.geom))
+            for y0 in range(r0, r0 + th, 8):
+                rows = len(range(max(rlo, y0), min(rhi, y0 + 7) + 1))
+                for x0 in range(c0, c0 + wt, 128):
+                    cols = len(range(max(clo, x0), min(chi, x0 + 127) + 1))
+                    if rows and cols:
+                        factors += rows + cols
+    return entries, factors
+
+
 @pytest.mark.parametrize("kind", sorted(KERNELS))
 def test_the_counters_are_the_staged_entries_and_windows(kind):
     p = pipeline(KERNELS[kind])
@@ -115,28 +162,70 @@ def test_the_counters_are_the_staged_entries_and_windows(kind):
     assert {c.kind for c in chunks} == {kind}
     want = [by_hand(p._engine, c) for c in chunks]
     assert [c.walk for c in chunks] == want
-    assert counters() == (None, None)          # staged outside a profiler
+    assert counters(kind) == (None, None)      # staged outside a profiler
     profiled(p.ingest, staged)
-    entries, cells = counters()
+    entries, cells = counters(kind)
     assert entries == sum(e for e, _ in want) > 300      # halo copies
     assert cells == sum(c for _, c in want)
-    assert 0 < cells < entries * (2 * (30 if kind == "rot" else 16) + 1) ** 2
+    assert 0 < cells < entries * (2 * RADIUS[kind] + 1) ** 2
     profiled(p.ingest, staged)                 # each commit adds them
-    assert counters() == (2 * entries, 2 * cells)
+    assert counters(kind) == (2 * entries, 2 * cells)
+    others = {n for k, names in _WALK_COUNTERS.items() if k != kind
+              for n in names} - set(_WALK_COUNTERS[kind])
+    assert not others & set(profiling.snapshot()["counters"])
 
 
-def test_nothing_counts_without_a_profiler(monkeypatch):
-    p = pipeline(KERNELS["rot"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_gauss_walk_is_the_entries_and_their_factors_slice_by_slice(case):
+    """σ 1 with the product cutoff, σ 4 on one tile and on 64-cell tiles
+    (halo copies in several tiles, the home-tile clip), each chunk with a
+    sub-chunk of dead entries (r = -1) appended to its last run, and with
+    its runs merged pairwise into 256-wide tiles (two column slices)."""
+    sigma, cut, tile = CASES[case]
+    p = pipeline(dict(default_sigma=sigma), tile)
+    n = 400
+    (chunk,) = p.stage(cloud(n)).per_spec[0]
+    assert chunk.kind == "gauss" and chunk.cut == cut
+    eng = p._engine
+    dead = torch.zeros_like(chunk.params[:1])
+    dead[:, 6] = -1
+    params = torch.cat([chunk.params, dead])
+    bids = torch.cat([chunk.bids, chunk.bids[-1:]])
+    shape = (eng.H_pad, eng.W_state)
+    got = gauss_kernels.gauss_walk(params, bids, chunk.th, chunk.wt, shape,
+                                   eng.geom)
+    assert got == gauss_by_hand(eng, params, bids, chunk.th, chunk.wt)
+    assert got == chunk.walk                  # the dead sub-chunk adds 0
+    assert got[0] > n if tile == TILE else got[0] >= 0.9 * n  # halo copies
+    r = int(np.ceil(3 * sigma))
+    assert got[0] < got[1] < got[0] * (2 * r + 1) * 4
+    if eng.W_state % 256 == 0:
+        wide = gauss_kernels.gauss_walk(params, bids // 2, chunk.th, 256,
+                                        shape, eng.geom)
+        assert wide == gauss_by_hand(eng, params, bids // 2, chunk.th, 256)
+
+
+@pytest.mark.parametrize("kind", ["gauss", "rot"])
+def test_nothing_counts_without_a_profiler(kind, monkeypatch):
+    p = pipeline(KERNELS[kind])
     staged = p.stage(cloud())
     assert all(c.walk is not None for c in staged.per_spec[0])
+    name = "gauss_walk" if kind == "gauss" else "rot_walk"
+    real = getattr(gauss_kernels, name)
+    calls = []
 
-    def refused(*a, **k):
-        raise AssertionError("counted with no profiler recording")
-    monkeypatch.setattr(gauss_kernels, "rot_walk", refused)
+    def walk(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(gauss_kernels, name, walk)
     p.ingest(cloud(seed=1))                    # laid out, not counted
     p.ingest(staged)
     p.finalize()
+    assert calls == []
     assert profiling.snapshot() == {"spans": {}, "counters": {}}
+    p = pipeline(KERNELS[kind])
+    profiled(p.ingest, cloud(seed=1))          # counted under a profiler
+    assert calls and counters(kind)[0] > 0
 
 
 @pytest.mark.parametrize("route", ["device", "host"])
@@ -147,11 +236,35 @@ def test_staged_and_host_sourced_ingests_count_alike(kind, route,
         monkeypatch.setenv("PCR_WIRE_CHEAP", "0")
     p = pipeline(KERNELS[kind])
     profiled(p.ingest, p.stage(cloud(seed=2)))
-    staged = counters()
+    staged = counters(kind)
     profiling.reset()
     profiled(p.ingest, cloud(seed=2))
-    assert counters() == staged
+    assert counters(kind) == staged
     assert staged[0] > 0
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+@pytest.mark.parametrize("sigma,r", [(1.0, 3), (4.0, 12), (16.0, 32)])
+def test_a_k2_chunk_carries_its_largest_radius(sigma, r, route,
+                                               monkeypatch):
+    """Both layout routes hand K2 its chunk's largest radius (ceil(3 sigma),
+    capped at 32 cells), and splat_fns passes it to the kernel and to its
+    plain version, which gives the same state as without it."""
+    if route == "host":
+        monkeypatch.setenv("PCR_WIRE_CHEAP", "0")
+    p = pipeline(dict(default_sigma=sigma))
+    chunks = p.stage(cloud()).per_spec[0]
+    assert chunks and all(c.kind == "gauss" and c.rmax == r for c in chunks)
+    eng = p._engine
+    _, plain, kw = eng.splat_fns(chunks[0])
+    assert kw["rmax"] == r
+    got = [torch.zeros_like(s) for s in eng._states[0]]
+    plain(got, chunks[0].params, chunks[0].bids, **kw)
+    want = [torch.zeros_like(s) for s in eng._states[0]]
+    kw.pop("rmax")
+    plain(want, chunks[0].params, chunks[0].bids, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0].abs().sum() > 0
 
 
 def test_a_hybrid_stage_counts_on_its_workers():
