@@ -38,7 +38,8 @@ the TPU engine runs for every Line glyph. The CUDA source is
 
 `rect_plan` is the launch's geometry, which the wrapper hands to the
 kernel; `rect_walk_counts` recomputes what the walk does on given entries
-(records kept, row hits walked).
+(records kept, row hits walked), and `rect_walk` a chunk's live entries
+and row hits, the counters its commit adds (TorchEngine._counted).
 
 The states are updated IN PLACE. The wrapper takes the plain version only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
@@ -53,11 +54,11 @@ import torch
 from . import _build
 from .gauss_kernels import (_PLAIN_BUDGET, SLICE_COLS, SLICE_ROWS, THREADS,
                             WARP_COLS, SplatPlan, _check, _entries, _launch,
-                            _tiles)
+                            _tiles, _walk_totals)
 from .kernels import BLOCK
 
 __all__ = ["RECT_BAND_ROWS", "RECT_PIECE", "rect_plan", "rect_splat",
-           "rect_splat_plain", "rect_walk_counts"]
+           "rect_splat_plain", "rect_walk", "rect_walk_counts"]
 
 # csrc/rect_splat.cu's shapes: the rows of a tile one CTA owns (one 8-row
 # slice a row of four warps) and the entries staged at a time
@@ -166,6 +167,24 @@ def rect_splat_plain(states, params: torch.Tensor, bids: torch.Tensor, *,
         a, done = b, int(ends[b - 1])
 
 
+def _cut(p, run, row0, col0, th: int, wt: int):
+    """Each entry's rectangle cut to its tile, relative to the tile's
+    corner (row0, col0): (x0, x1, y0, y1), and `live` where `run` marks a
+    run on the grid and the cut keeps a cell."""
+    x0 = torch.maximum(p[:, 0].long(), col0) - col0
+    x1 = torch.minimum(p[:, 1].long(), col0 + wt - 1) - col0
+    y0 = torch.maximum(p[:, 2].long(), row0) - row0
+    y1 = torch.minimum(p[:, 3].long(), row0 + th - 1) - row0
+    return x0, x1, y0, y1, run & (x0 <= x1) & (y0 <= y1)
+
+
+def _hits(x0, x1, y0, y1, live):
+    """The row hits the walk takes: a live entry's rows in its tile times
+    the 32-column warp blocks its columns meet."""
+    return torch.where(live, (y1 - y0 + 1)
+                       * (x1 // WARP_COLS - x0 // WARP_COLS + 1), 0)
+
+
 def rect_walk_counts(params: torch.Tensor, bids: torch.Tensor, th: int,
                      wt: int, ncb: int, nb_total: int) -> tuple[int, int]:
     """What K3's walk does on these entries: (records, hits). An entry
@@ -173,18 +192,22 @@ def rect_walk_counts(params: torch.Tensor, bids: torch.Tensor, th: int,
     of its tile that its rectangle meets; a warp walks one hit per row of
     a record that meets its 32 columns."""
     b = bids.long()[:, None]
-    run = (b >= 0) & (b < nb_total)
-    r0, c0 = b // ncb * th, b % ncb * wt
-    # the rectangle cut to its tile, relative to the tile's corner
-    x0 = torch.maximum(params[:, 0].long(), c0) - c0
-    x1 = torch.minimum(params[:, 1].long(), c0 + wt - 1) - c0
-    y0 = torch.maximum(params[:, 2].long(), r0) - r0
-    y1 = torch.minimum(params[:, 3].long(), r0 + th - 1) - r0
-    live = run & (x0 <= x1) & (y0 <= y1)
+    x0, x1, y0, y1, live = _cut(params, (b >= 0) & (b < nb_total),
+                                b // ncb * th, b % ncb * wt, th, wt)
+    records = torch.where(
+        live, (y1 // RECT_BAND_ROWS - y0 // RECT_BAND_ROWS + 1)
+        * (x1 // SLICE_COLS - x0 // SLICE_COLS + 1), 0)
+    return int(records.sum()), int(_hits(x0, x1, y0, y1, live).sum())
 
-    def spans(lo, hi, step):
-        return torch.where(live, hi // step - lo // step + 1, 0)
 
-    records = spans(y0, y1, RECT_BAND_ROWS) * spans(x0, x1, SLICE_COLS)
-    hits = torch.where(live, y1 - y0 + 1, 0) * spans(x0, x1, WARP_COLS)
-    return int(records.sum()), int(hits.sum())
+def rect_walk(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
+              shape) -> tuple:
+    """(entries, hits) of a K3 chunk over state fields of `shape` (H_pad,
+    W_pad): the entries of its runs whose rectangle meets their tile, halo
+    copies included, and the row hits the walk takes on them
+    (rect_walk_counts' second number). Reads the device once, a slice of
+    the chunk at a time."""
+    def work(p, run, row0, col0):
+        cut = _cut(p, run, row0, col0, th, wt)
+        return cut[4], _hits(*cut)
+    return _walk_totals(params, bids, th, wt, shape, work)

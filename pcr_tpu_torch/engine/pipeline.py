@@ -516,7 +516,7 @@ class Pipeline:
         This is the analogue of the reference's Device-resident clouds
         ("GPU-Device" mode, docs/BENCHMARK_RESULTS.md:28-42): a subsequent
         `ingest(staged)` is pure device compute. Only available on the
-        device backend. The K4 / K5 chunks count their walk here
+        device backend. The K2 / K3 / K4 / K5 chunks count their walk here
         (torch_backend.staging), so that an ingest of them under a profiler
         reads nothing of the device for its counters."""
         if self._backend != _DEVICE:

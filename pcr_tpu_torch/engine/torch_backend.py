@@ -69,8 +69,9 @@ of "finalize.d2h"; every host synchronisation,
 the arena's wait for a buffer included, through device_prep.sync.
 (Out-of-core band swaps copy into host bands of their own and count them
 in OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
-"rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk) and a K2
-chunk's "gauss_entries" and "gauss_factor_cells" (gauss_kernels.gauss_walk),
+"rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk), a K2
+chunk's "gauss_entries" and "gauss_factor_cells" (gauss_kernels.gauss_walk)
+and a K3 chunk's "rect_entries" and "rect_hits" (line_kernels.rect_walk),
 which the chunk's layout counted where a profiler recorded or the chunk was
 being staged (`staging`): a commit reads nothing of the device for them.
 """
@@ -142,9 +143,10 @@ class StagedChunk:
 
     `ready` is the event of the upload the tensors came from (None on the
     CPU): `commit` makes its stream wait on it. `walk` is a K4 / K5
-    chunk's (entries, window cells), or a K2 chunk's (entries, factors),
-    where its layout counted them (TorchEngine._counted). `rmax` is a K2
-    chunk's largest radius, which picks the kernel's walk."""
+    chunk's (entries, window cells), a K2 chunk's (entries, factors) or a
+    K3 chunk's (entries, row hits), where its layout counted them
+    (TorchEngine._counted). `rmax` is a K2 chunk's largest radius, which
+    picks the kernel's walk."""
     kind: str
     params: torch.Tensor
     bids: torch.Tensor | None
@@ -160,16 +162,18 @@ class StagedChunk:
 _STAGING = contextvars.ContextVar("pcr_tpu_torch_staging", default=False)
 # the counters a commit adds from a chunk's `walk`, by kind
 _WALK_COUNTERS = {"gauss": ("gauss_entries", "gauss_factor_cells"),
+                  "rect": ("rect_entries", "rect_hits"),
                   "rot": ("rot_entries", "rot_window_cells"),
                   "rotp": ("rot_entries", "rot_window_cells")}
 
 
 @contextlib.contextmanager
 def staging():
-    """The block stages clouds (Pipeline.stage): the K2 / K4 / K5 chunks
-    laid out in it count their walk then, so that no later commit of them
-    reads the device for its counters. A thread the block hands work to
-    runs it in a copy of the block's context (contextvars.copy_context)."""
+    """The block stages clouds (Pipeline.stage): the K2 / K3 / K4 / K5
+    chunks laid out in it count their walk then, so that no later commit
+    of them reads the device for its counters. A thread the block hands
+    work to runs it in a copy of the block's context
+    (contextvars.copy_context)."""
     token = _STAGING.set(True)
     try:
         yield
@@ -911,10 +915,10 @@ class TorchEngine:
                                          rmax=plan.rmax))
 
     def _counted(self, chunk: StagedChunk) -> StagedChunk:
-        """`chunk`, a K2 / K4 / K5 one with its walk counted
-        (gauss_kernels.gauss_walk / rot_walk, one device read) where a
-        profiler records or the chunk is being staged: the counters commit
-        adds."""
+        """`chunk`, a K2 / K3 / K4 / K5 one with its walk counted
+        (gauss_kernels.gauss_walk / rot_walk, line_kernels.rect_walk; one
+        device read) where a profiler records or the chunk is being staged:
+        the counters commit adds."""
         if not (profiling.recording() or _STAGING.get()):
             return chunk
         shape = (self.H_pad, self.W_state)
@@ -926,6 +930,9 @@ class TorchEngine:
             chunk.walk = gauss_kernels.rot_walk(
                 chunk.kind, chunk.params, chunk.bids, chunk.th, chunk.wt,
                 shape, self.geom)
+        elif chunk.kind == "rect":
+            chunk.walk = line_kernels.rect_walk(chunk.params, chunk.bids,
+                                                chunk.th, chunk.wt, shape)
         return chunk
 
     def _gauss_host_chunk(self, info, plan, gp, valid, values):
@@ -1072,8 +1079,9 @@ class TorchEngine:
             # the fills make padding an empty interval (ax = 1 > bx = 0)
             segs = [(rects.ax, 1), (rects.bx, 0), (rects.ay, 1),
                     (rects.by, 0), (f0, 0)]
-            staged.append(self._layout_upload(
-                "rect", eb, self.H_pad // TH * ncb, segs, idx, b - a, TH, wt))
+            staged.append(self._counted(self._layout_upload(
+                "rect", eb, self.H_pad // TH * ncb, segs, idx, b - a, TH,
+                wt)))
         return staged
 
     def prepare_line_raw(self, spec_idx: int, glyph, x, y, valid, values,
@@ -1141,8 +1149,8 @@ class TorchEngine:
                 del runs
                 params, bids = device_prep.device_layout(
                     eb, planes, self.H_pad // TH * ncb, fills, idx)
-            staged.append(StagedChunk("rect", params, bids, m, TH, wt,
-                                      ready=ev))
+            staged.append(self._counted(StagedChunk("rect", params, bids, m,
+                                                    TH, wt, ready=ev)))
         return staged
 
     # -- commit ----------------------------------------------------------------

@@ -312,6 +312,25 @@ def test_a_staged_gauss_chunk_counts_its_walk_as_on_the_cpu(card, glyph):
     assert chunk.walk[0] >= 200_000 and chunk.walk[1] > chunk.walk[0]
 
 
+def test_a_staged_line_chunk_counts_its_walk_as_on_the_cpu(card):
+    """`stage` counts a K3 chunk's live entries and row hits on the card
+    (hl 16 at 30 degrees: 17 runs a line, fewer where the grid's edge cuts
+    it); the same count of the chunk's bytes on the CPU agrees."""
+    from pcr_tpu_torch.engine import line_kernels as lk
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=make_grid_config(w=300.0, h=200.0),
+        reductions=[pcr.line_splat_spec("v", default_direction=np.pi / 6,
+                                        default_half_length=16.0)],
+        exec_mode=pcr.ExecutionMode.GPU, gpu_require_strict=True))
+    (chunk,) = p.stage(make_cloud(200_000, 0, 300.0, 200.0)).per_spec[0]
+    eng = p._engine
+    assert chunk.kind == "rect" and chunk.params.device.type == "cuda"
+    cpu = lk.rect_walk(chunk.params.cpu(), chunk.bids.cpu(), chunk.th,
+                       chunk.wt, (eng.H_pad, eng.W_state))
+    assert chunk.walk == cpu
+    assert 15 * 200_000 < chunk.walk[0] <= chunk.walk[1] < 2 * chunk.walk[0]
+
+
 @pytest.mark.parametrize("glyph", list(GLYPHS))
 def test_gauss_pipeline_on_the_card_matches_oracle(card, glyph, monkeypatch):
     monkeypatch.delenv("PCR_TORCH_DEVICE", raising=False)
