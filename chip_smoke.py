@@ -55,7 +55,9 @@ Phases:
       (the same terms in another order), and both times from CUDA events;
       each row with its live entries, the dead ones inside a tile's run
       (none: both Line routes drop the runs a clip empties), the longest
-      and the mean tile run in sub-chunks, and the walk's records and hits;
+      and the mean tile run in sub-chunks, the walk's records and hits,
+      and the SHA-256 of the kernel's output state (two versions of K3
+      that keep its bits print the same);
   (i) Line pipelines on the 1000x1000 grid against the numpy oracle (1e-5
       per cell, exact NaN footprint): half length 4 WeightedAverage 1M
       staged with state_dir + GeoTIFF + resume, half length 16 direction
@@ -737,6 +739,8 @@ def rect_case(torch, pcr, lk, n, glyph, label, seed):
               f"K3 {label} nf={nf}: touched footprints differ")
         err = max(close(g.cpu().numpy(), r.cpu().numpy(),
                         f"K3 {label} nf={nf}") for g, r in zip(got, ref))
+        digest = hashlib.sha256(b"".join(
+            g.cpu().numpy().tobytes() for g in got)).hexdigest()
         scratch = fresh()
         ms, plain_ms, turns = time_turns(
             torch, lambda: lk.rect_splat(scratch, pr, b, **kw),
@@ -751,6 +755,7 @@ def rect_case(torch, pcr, lk, n, glyph, label, seed):
               f"mean_subchunks_per_tile={mean_subs:.1f} slices={plan.slices} "
               f"threads={plan.threads} smem={plan.smem_bytes} "
               f"records={records} walk_hits={hits} stage={stage_s:.4f}s "
+              f"state_sha256={digest} "
               f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
               f"cells={cells:.0f} bound_ms={bms!r} ({by}) (turns: {turns})")
         res[nf] = (err, ms, plain_ms, (bms, by))

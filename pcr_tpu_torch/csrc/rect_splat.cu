@@ -18,48 +18,58 @@
 // 0/1 outer product on the MXU, which costs it little. Here an entry is one
 // Bresenham run: one row or one column of at most 2 * max_radius_cells + 1
 // cells, so nearly all of a tile's cells have nothing to do with it. One CTA
-// of 256 threads owns a band of 16 rows x 128 columns of one state tile for
-// the whole launch: two of csrc/splat_walk.cuh's 8-row slices, one a row of
-// four warps, so a warp owns a block of 8 rows x 32 columns as in K2 / K4 /
-// K5 (a (128, 128) tile is eight CTAs; any th and wt are taken, the ragged
-// last bands masked). A thread owns one column of its slice and keeps its 8
-// cells of each field in registers, loaded from the state first and stored
-// once at the end, so no cell is read or written in between. The run's
-// entries stream through shared memory in pieces of kPiece, the next piece
-// copied by cp.async while this one is walked. When a piece has landed, one
-// thread per entry cuts its rectangle to the tile and to the band; what is
-// left of the piece is compacted, in entry order (a ballot and a prefix
-// within each warp, the warps' counts added in warp order; the cut is made
-// twice, to count and to write, rather than kept in registers), into
-// 16-byte records {first column, columns - 1, mask of the band's rows, f0}.
-// A 1-row run survives in one of a tile's eight bands. Each warp then takes
-// the records 32 at a time, one per lane, tests them against its 32 columns
-// and 8 rows, and for each of the 8 rows ballots the records that meet it
-// and walks those hits in record order: one broadcast load of the record,
-// one unsigned compare of the lane's column, and the adds into that row's
-// registers. Rows are independent, so walking row by row keeps each cell's
-// terms in entry order, and the row is a compile-time register, not a test.
-// Each cell is written by one thread, its terms added in entry order to the
-// state's value, with no atomics: the result is a function of the input
-// bits alone, equal bit for bit to the first version's and to the CPU plain
-// version's index_add_, which add in the same order.
+// of kCta threads owns a band of kBandRows = 8 rows x 128 columns of one
+// state tile for the whole launch: csrc/splat_walk.cuh's 8-row slices, one a
+// row of four warps, so a warp owns a block of 8 rows x 32 columns as in
+// K2 / K4 / K5 (any th and wt are taken: a tile is ceil(th / kBandRows) x
+// ceil(wt / 128) CTAs, the ragged last bands masked). The engine lays Line
+// entries out by (kBandRows, 128) tiles (line_kernels.RECT_BAND_ROWS), so a
+// tile is one CTA and its run holds only the entries that meet the CTA's
+// rows: a run of several rows is copied into each band it meets, and every
+// entry is staged once. A thread owns one column of its slice and keeps its
+// 8 cells of each field in registers, loaded from the state first and
+// stored once at the end, so no cell is read or written in between. The
+// run's entries stream through shared memory in pieces of kPiece (four a
+// thread), the next piece copied by cp.async while this one is walked. When
+// a piece has landed, one thread per entry cuts its rectangle to the tile
+// and to the band; what is left of the piece is compacted, in entry order
+// (a ballot and a prefix within each warp, the warps' counts added in warp
+// order; the cut is made twice, to count and to write, rather than kept in
+// registers), into 16-byte records {first column, columns - 1, mask of the
+// band's rows, f0}. Each warp then takes the records 32 at a time, one per
+// lane, tests them against its 32 columns and 8 rows, and for each of the 8
+// rows ballots the records that meet it and walks those hits in record
+// order: one broadcast load of the record, one unsigned compare of the
+// lane's column, and the adds into that row's registers. Rows are
+// independent, so walking row by row keeps each cell's terms in entry
+// order, and the row is a compile-time register, not a test. Each cell is
+// written by one thread, its terms added in entry order to the state's
+// value, with no atomics: the result is a function of the input bits alone,
+// equal bit for bit to the first version's and to the CPU plain version's
+// index_add_, which add in the same order. A band's run is a taller tile's
+// run less the entries that miss the band, in the same order (the layout's
+// sort is stable), so the band layout gives every cell the bits of a
+// layout by 128-row tiles.
 //
 // What bounds it: instruction issue and latency in the hit walk (12
 // instructions a hit, one dependent shared-memory load each, 32 warps an
-// SM), then the bands of a tile each staging the tile's whole run from L2
-// (20 B an entry and band); device-memory bytes do not matter. A tile run
-// is serial per cell, so the longest run of a launch sets its time. Measured
-// on an NVIDIA H100 80GB HBM3 at 700 W, CUDA events, on 5M horizontal lines
-// of half length 16 on a 1000 x 1000 grid, two fields: bands
-// of 8 / 16 / 32 rows with pieces of 512 / 1024 / 2048 entries (four
-// entries a thread and piece, 32 warps an SM in each) took 0.78 / 0.67 /
-// 0.72 ms, staging alone 0.29 / - / 0.17 ms: taller bands stage and cut
-// less, but each warp then scans more records that miss its rows, and
-// larger pieces at one band height cost occupancy. The first version (2.1
-// ms) kept a 32-row slice in shared memory (4 CTAs of 512 threads a tile,
-// two to an SM), staged each sub-chunk with plain loads behind barriers,
-// had all 16 warps of all 4 slices test every entry, and walked a hit as a
-// chain of shared-memory read-modify-writes.
+// SM) and the scan of the records; device-memory bytes do not matter. A
+// tile run is serial per cell, so the longest run of a launch sets its
+// time. Measured on an NVIDIA H100 80GB HBM3 at 700 W, CUDA events, a
+// job's launches on the three chunks of 5M Lines of half length 16 on a
+// 1000 x 1000 grid at 30 degrees (84.4M one-row runs), two fields: the
+// layout by 128-row tiles with 16-row bands, each band staging and cutting
+// its tile's whole run, 7.79 ms; band layouts of 8 / 16 / 32 rows (kPiece
+// 512 / 1024 / 2048, 32 warps an SM in each; each entry staged once, with
+// 3.5 / 1.8 / 0.95 % of padding) 3.45 / 4.36 / 5.56 ms: with one warp row a
+// band no warp scans records that miss its rows. At 90 degrees (33-row
+// runs, 4.9 / 3.0 / 2.0 band copies a run) 4.14 ms against 3.84 / 3.83 /
+// 3.90; at 0 degrees (one 33-column run a line) 0.68 against 0.34 / 0.43 /
+// 0.60. The first version (2.1 ms on 5M horizontal lines) kept a 32-row
+// slice in shared memory (4 CTAs of 512 threads a tile, two to an SM),
+// staged each sub-chunk with plain loads behind barriers, had all 16 warps
+// of all 4 slices test every entry, and walked a hit as a chain of
+// shared-memory read-modify-writes.
 
 #include "splat_walk.cuh"
 
@@ -67,15 +77,19 @@ namespace {
 
 using namespace splat;
 
-constexpr int kRowGroups = 2;       // 8-row slices a CTA owns, one a warp row
-constexpr int kBandRows = kSliceRows * kRowGroups;
+// rows a CTA owns, the row tile of the engine's Line layout
+// (line_kernels.RECT_BAND_ROWS)
+constexpr int kBandRows = 8;
+constexpr int kRowGroups = kBandRows / kSliceRows;  // 8-row slices, one a
+                                                    // warp row
 constexpr int kCta = kThreads * kRowGroups;   // threads a CTA
-constexpr int kPiece = 1024;         // entries staged at a time
+constexpr int kPiece = 4 * kCta;     // entries staged at a time
 constexpr int kSeg = 5;
 constexpr int kWarps = kCta / 32;
 constexpr int kRounds = kPiece / kCta;  // entries a thread cuts a piece
 static_assert(kPiece % kCta == 0 && kBlock % kPiece == 0, "piece size");
-static_assert(kBandRows <= 32, "a record's rows are one 32-bit mask");
+static_assert(kBandRows % kSliceRows == 0 && kBandRows <= 32,
+              "whole slices; a record's rows are one 32-bit mask");
 
 struct RectGeom {
   int th, wt, ncb, nb_total, w_pad, col_slices;
@@ -233,7 +247,7 @@ int pcr_rect_splat_piece() { return kPiece; }
 int pcr_rect_splat_band_rows() { return kBandRows; }
 
 // Launches K3 on `stream`; returns the cudaError_t of the launch (0 = ok).
-// `slices` is the wrapper's plan (line_kernels.rect_plan): the 16-row x
+// `slices` is the wrapper's plan (line_kernels.rect_plan): the kBandRows x
 // 128-column bands of a (th, wt) tile. Allocates nothing and does not
 // synchronise.
 int pcr_rect_splat(const void* params, const void* bids, int64_t nsub,

@@ -17,29 +17,33 @@ the TPU engine runs for every Line glyph. The CUDA source is
     WeightedAverage), 1.0 to field 1, each cell taking its terms in entry
     order, starting from the state's value. Padding is the empty interval
     ax = 1 > bx = 0; runs with bids outside [0, nb_total) are skipped.
+  * Layout: the engine lays Line entries out by (RECT_BAND_ROWS,
+    rect_col_tile(W)) tiles, the band one CTA owns, so a tile run holds
+    only the entries that meet the CTA's rows and each is staged once.
   * What bounds it on the card: instruction issue and shared-memory
     latency in the walk of a tile run, which is serial per cell, so the
     longest run of a launch sets its time; bytes do not matter.
   * What the design does about it: it gives up the TPU's evaluation of
     every entry over the whole 128 x 128 tile (cheap only on the MXU). One
-    CTA of 256 threads owns a band of RECT_BAND_ROWS = 16 rows x 128
-    columns of a tile: two 8-row slices of csrc/splat_walk.cuh's shape
-    (K2 / K4 / K5's), one a row of four warps; any th and wt, the ragged
-    last bands masked. A thread keeps one column's 8 cells of each field
-    in registers from the first load to the one store. The run streams
-    through shared memory in pieces of RECT_PIECE entries by cp.async, the
-    next piece in flight while this one is walked. One thread per entry
-    cuts its rectangle to the band; what is left (one band in eight for a
-    1-row run) is compacted in entry order into 16-byte records, and each
-    warp walks, row by row, only the records that meet its 8 rows and 32
-    columns. Each cell gets its terms in entry order from one thread, with
-    no atomics, so the bits are those of the CPU's plain version and of
-    the kernel's first version.
+    CTA owns a band of RECT_BAND_ROWS rows x 128 columns of a tile: 8-row
+    slices of csrc/splat_walk.cuh's shape (K2 / K4 / K5's), one a row of
+    four warps; any th and wt, the ragged last bands masked. A thread
+    keeps one column's 8 cells of each field in registers from the first
+    load to the one store. The run streams through shared memory in
+    pieces of RECT_PIECE entries (four a thread) by cp.async, the next
+    piece in flight while this one is walked. One thread per entry cuts
+    its rectangle to the band; what is left is compacted in entry order
+    into 16-byte records, and each warp walks, row by row, only the
+    records that meet its 8 rows and 32 columns. Each cell gets its terms
+    in entry order from one thread, with no atomics, so the bits are
+    those of the CPU's plain version and of the kernel's first version,
+    on a band layout as on a layout of taller tiles.
 
 `rect_plan` is the launch's geometry, which the wrapper hands to the
 kernel; `rect_walk_counts` recomputes what the walk does on given entries
-(records kept, row hits walked), and `rect_walk` a chunk's live entries
-and row hits, the counters its commit adds (TorchEngine._counted).
+(records kept, row hits walked), and `rect_walk` a chunk's live entries,
+row hits and staged entry slots, the counters its commit adds
+(TorchEngine._counted).
 
 The states are updated IN PLACE. The wrapper takes the plain version only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
@@ -58,12 +62,15 @@ from .gauss_kernels import (_PLAIN_BUDGET, SLICE_COLS, SLICE_ROWS, THREADS,
 from .kernels import BLOCK
 
 __all__ = ["RECT_BAND_ROWS", "RECT_PIECE", "rect_plan", "rect_splat",
-           "rect_splat_plain", "rect_walk", "rect_walk_counts"]
+           "rect_splat_plain", "rect_staged", "rect_walk",
+           "rect_walk_counts"]
 
 # csrc/rect_splat.cu's shapes: the rows of a tile one CTA owns (one 8-row
-# slice a row of four warps) and the entries staged at a time
-RECT_BAND_ROWS = 16
-RECT_PIECE = 1024
+# slice a row of four warps), which is also the row tile of the engine's
+# Line layout, and the entries staged at a time, four a thread
+RECT_BAND_ROWS = 8
+RECT_THREADS = THREADS * RECT_BAND_ROWS // SLICE_ROWS
+RECT_PIECE = 4 * RECT_THREADS
 
 _BOUND = None
 
@@ -91,16 +98,16 @@ def _lib():
 def rect_plan(th: int, wt: int) -> SplatPlan:
     """One launch of K3 over (th, wt) tiles, whatever th and wt: a CTA per
     band of RECT_BAND_ROWS rows x 128 columns of a tile (the last of each
-    kind ragged where th % 16 or wt % 128), and the dynamic shared memory
-    of one staged piece and its records."""
+    kind ragged where th % RECT_BAND_ROWS or wt % 128; one a tile of the
+    engine's Line layout), and the dynamic shared memory of one staged
+    piece and its records."""
     if th < 1 or wt < 1:
         raise ValueError(f"rect_splat: no ({th}, {wt}) tiles")
     slices = -(-th // RECT_BAND_ROWS) * -(-wt // SLICE_COLS)
     if slices > 65_535:
         raise ValueError(f"rect_splat: ({th}, {wt}) tiles need {slices} "
                          f"bands")
-    threads = THREADS * RECT_BAND_ROWS // SLICE_ROWS
-    return SplatPlan(slices, threads, (5 + 4) * RECT_PIECE * 4)
+    return SplatPlan(slices, RECT_THREADS, (5 + 4) * RECT_PIECE * 4)
 
 
 def rect_splat(states, params: torch.Tensor, bids: torch.Tensor, *, th: int,
@@ -200,14 +207,27 @@ def rect_walk_counts(params: torch.Tensor, bids: torch.Tensor, th: int,
     return int(records.sum()), int(_hits(x0, x1, y0, y1, live).sum())
 
 
+def rect_staged(bids: torch.Tensor, th: int, wt: int, nb_total: int):
+    """The entry slots K3's CTAs copy into shared memory for a chunk of
+    these bids, as a 0-d int64 tensor on their device: every run on the
+    grid is staged whole, padding included, once by each of its tile's
+    rect_plan(th, wt).slices bands."""
+    runs = ((bids >= 0) & (bids < nb_total)).sum()
+    return runs * (BLOCK * rect_plan(th, wt).slices)
+
+
 def rect_walk(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
               shape) -> tuple:
-    """(entries, hits) of a K3 chunk over state fields of `shape` (H_pad,
-    W_pad): the entries of its runs whose rectangle meets their tile, halo
-    copies included, and the row hits the walk takes on them
-    (rect_walk_counts' second number). Reads the device once, a slice of
-    the chunk at a time."""
+    """(entries, hits, staged) of a K3 chunk over state fields of `shape`
+    (H_pad, W_pad): the entries of its runs whose rectangle meets their
+    tile, halo copies included, the row hits the walk takes on them
+    (rect_walk_counts' second number) and the entry slots its CTAs stage
+    (rect_staged). Reads the device twice: the entries and hits summed a
+    slice of the chunk at a time, then the staged slots."""
+    h_pad, w_pad = shape
+    staged = rect_staged(bids, th, wt, h_pad // th * (w_pad // wt))
+
     def work(p, run, row0, col0):
         cut = _cut(p, run, row0, col0, th, wt)
         return cut[4], _hits(*cut)
-    return _walk_totals(params, bids, th, wt, shape, work)
+    return _walk_totals(params, bids, th, wt, shape, work) + (int(staged),)

@@ -71,9 +71,10 @@ the arena's wait for a buffer included, through device_prep.sync.
 in OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
 "rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk), a K2
 chunk's "gauss_entries" and "gauss_factor_cells" (gauss_kernels.gauss_walk)
-and a K3 chunk's "rect_entries" and "rect_hits" (line_kernels.rect_walk),
-which the chunk's layout counted where a profiler recorded or the chunk was
-being staged (`staging`): a commit reads nothing of the device for them.
+and a K3 chunk's "rect_entries", "rect_hits" and "rect_staged"
+(line_kernels.rect_walk), which the chunk's layout counted where a profiler
+recorded or the chunk was being staged (`staging`): a commit reads nothing
+of the device for them.
 """
 
 from __future__ import annotations
@@ -99,7 +100,7 @@ from . import device_prep, gauss_kernels, kernels, line_kernels, routing
 from .gauss_kernels import (GaussGeom, rot_splat_dense, rot_splat_packed,
                             sorted_splat_gauss)
 from .kernels import BLOCK, TH, sorted_splat_point
-from .line_kernels import rect_splat
+from .line_kernels import RECT_BAND_ROWS, rect_splat
 from .tiling import (ROT_COL_TILE, ROT_ROW_BLOCK, ROTP_RMAX, ROTP_ROW_BLOCK,
                      WIRE_COORD_MAX, WIRE_ENTRY_BUDGET, chunk_ranges,
                      col_tile, gauss_col_tile, gauss_corr_offsets,
@@ -144,9 +145,9 @@ class StagedChunk:
     `ready` is the event of the upload the tensors came from (None on the
     CPU): `commit` makes its stream wait on it. `walk` is a K4 / K5
     chunk's (entries, window cells), a K2 chunk's (entries, factors) or a
-    K3 chunk's (entries, row hits), where its layout counted them
-    (TorchEngine._counted). `rmax` is a K2 chunk's largest radius, which
-    picks the kernel's walk."""
+    K3 chunk's (entries, row hits, staged slots), where its layout counted
+    them (TorchEngine._counted). `rmax` is a K2 chunk's largest radius,
+    which picks the kernel's walk."""
     kind: str
     params: torch.Tensor
     bids: torch.Tensor | None
@@ -162,7 +163,7 @@ class StagedChunk:
 _STAGING = contextvars.ContextVar("pcr_tpu_torch_staging", default=False)
 # the counters a commit adds from a chunk's `walk`, by kind
 _WALK_COUNTERS = {"gauss": ("gauss_entries", "gauss_factor_cells"),
-                  "rect": ("rect_entries", "rect_hits"),
+                  "rect": ("rect_entries", "rect_hits", "rect_staged"),
                   "rot": ("rot_entries", "rot_window_cells"),
                   "rotp": ("rot_entries", "rot_window_cells")}
 
@@ -1017,20 +1018,25 @@ class TorchEngine:
 
     # -- Line ------------------------------------------------------------------
 
-    def _line_ranges(self, nruns, dmaj_max: int, total: int):
-        """[(a, b)] cutting a Line cloud of `total` runs into chunks whose
-        runs, by the worst case of the tiles a run of `dmaj_max` + 1 cells
-        spans, stay inside tiling.WIRE_ENTRY_BUDGET. Both layout routes cut
+    def _line_ranges(self, nruns, xmaj, dmaj_max: int):
+        """[(a, b)] cutting a Line cloud into chunks whose entries, by the
+        worst case of the tiles each run spans, stay inside
+        tiling.WIRE_ENTRY_BUDGET (one line a chunk at least). A run has
+        at most dmaj_max + 1 cells: on an x-major line (`xmaj`) it is one
+        row, which meets one row tile and at most dmaj_max // wt + 2
+        column tiles; on a y-major line one column, which meets at most
+        dmaj_max // RECT_BAND_ROWS + 2 row tiles. Both layout routes cut
         alike."""
         n = len(nruns)
-        jmax = dmaj_max // min(TH, rect_col_tile(self.W)) + 2
-        cap = max(WIRE_ENTRY_BUDGET // jmax, 1)
-        if total <= cap:
+        copies = np.where(xmaj, dmaj_max // rect_col_tile(self.W) + 2,
+                          dmaj_max // RECT_BAND_ROWS + 2)
+        ends = np.cumsum(nruns * copies, dtype=np.int64)
+        if n == 0 or ends[-1] <= WIRE_ENTRY_BUDGET:
             return [(0, n)]
-        ends = np.cumsum(nruns, dtype=np.int64)
         out, a, done = [], 0, 0
         while a < n:
-            b = max(int(np.searchsorted(ends, done + cap, "right")), a + 1)
+            b = max(int(np.searchsorted(ends, done + WIRE_ENTRY_BUDGET,
+                                        "right")), a + 1)
             out.append((a, b))
             a, done = b, int(ends[b - 1])
         return out
@@ -1041,10 +1047,12 @@ class TorchEngine:
         (routing.line_params; the Pallas branch of TpuEngine.prepare_line,
         :2040-2063): each line decomposes into its exact Bresenham runs,
         clipped to the home tile and the grid, and every run that keeps a
-        cell is one K3 entry, copied into each (TH, rect_col_tile(W)) tile
-        it spans. The runs and the layout are built on the card
-        (`wire_cheap`, where the device layout serves the cloud) or on the
-        host (routing.line_rects). Count adds 1 per cell, as the oracle
+        cell is one K3 entry, copied into each (RECT_BAND_ROWS,
+        rect_col_tile(W)) tile it spans: a tile is the band one K3 CTA
+        owns, so a CTA stages only the entries that meet its rows. The
+        runs and the layout are built on the card (`wire_cheap`, where
+        the device layout serves the cloud) or on the host
+        (routing.line_rects). Count adds 1 per cell, as the oracle
         does (cpu_backend glyph_rtype_int); the TPU's rect path adds the
         value there."""
         _, info = self.plans[spec_idx]
@@ -1056,7 +1064,7 @@ class TorchEngine:
         live = valid.any()
         dmaj_max = int(np.maximum(ddx, ddy)[valid].max()) if live else 0
         total = int(nruns.sum())
-        ranges = self._line_ranges(nruns, dmaj_max, total)
+        ranges = self._line_ranges(nruns, ddx >= ddy, dmaj_max)
         if (wire_cheap and self._wire_ok(info)
                 and (not live or max(int(np.abs(e[valid]).max())
                                      for e in ends) < WIRE_COORD_MAX)):
@@ -1074,14 +1082,15 @@ class TorchEngine:
                                        valid[a:b], col[a:b], row[a:b])
             f0 = (np.ones(len(rects.owner), np.float32) if count
                   else values[a:b][rects.owner])
-            idx, eb = halo_copies(rects.ay // TH, rects.by // TH,
+            idx, eb = halo_copies(rects.ay // RECT_BAND_ROWS,
+                                  rects.by // RECT_BAND_ROWS,
                                   rects.ax // wt, rects.bx // wt, ncb)
             # the fills make padding an empty interval (ax = 1 > bx = 0)
             segs = [(rects.ax, 1), (rects.bx, 0), (rects.ay, 1),
                     (rects.by, 0), (f0, 0)]
             staged.append(self._counted(self._layout_upload(
-                "rect", eb, self.H_pad // TH * ncb, segs, idx, b - a, TH,
-                wt)))
+                "rect", eb, self.H_pad // RECT_BAND_ROWS * ncb, segs, idx,
+                b - a, RECT_BAND_ROWS, wt)))
         return staged
 
     def prepare_line_raw(self, spec_idx: int, glyph, x, y, valid, values,
@@ -1109,9 +1118,12 @@ class TorchEngine:
             float(np.sin(d).astype(np.float32)))
         if max_abs >= WIRE_COORD_MAX:
             return None
+        # the lines' axes from the endpoint words' halves (pack16)
+        ddx = np.abs((e1 >> 16) - (e0 >> 16))
+        ddy = np.abs(e1.astype(np.int16) - e0.astype(np.int16))
         return self._line_emit(info,
-                               self._line_ranges(nruns, dmaj_max, total), e0,
-                               e1, nruns, total,
+                               self._line_ranges(nruns, ddx >= ddy, dmaj_max),
+                               e0, e1, nruns, total,
                                np.asarray(values, np.float32), col, row)
 
     def _line_emit(self, info, ranges, e0, e1, nruns, total, values, col,
@@ -1145,12 +1157,13 @@ class TorchEngine:
                 val = buf[2 * m:3 * m]
                 eb, planes, fills, idx = device_prep.line_finish(
                     *runs, torch.ones_like(val, dtype=torch.float32) if count
-                    else val, TH, wt, ncb)
+                    else val, RECT_BAND_ROWS, wt, ncb)
                 del runs
                 params, bids = device_prep.device_layout(
-                    eb, planes, self.H_pad // TH * ncb, fills, idx)
-            staged.append(self._counted(StagedChunk("rect", params, bids, m,
-                                                    TH, wt, ready=ev)))
+                    eb, planes, self.H_pad // RECT_BAND_ROWS * ncb, fills,
+                    idx)
+            staged.append(self._counted(StagedChunk(
+                "rect", params, bids, m, RECT_BAND_ROWS, wt, ready=ev)))
         return staged
 
     # -- commit ----------------------------------------------------------------

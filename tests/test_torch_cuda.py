@@ -313,9 +313,11 @@ def test_a_staged_gauss_chunk_counts_its_walk_as_on_the_cpu(card, glyph):
 
 
 def test_a_staged_line_chunk_counts_its_walk_as_on_the_cpu(card):
-    """`stage` counts a K3 chunk's live entries and row hits on the card
-    (hl 16 at 30 degrees: 17 runs a line, fewer where the grid's edge cuts
-    it); the same count of the chunk's bytes on the CPU agrees."""
+    """`stage` counts a K3 chunk's live entries, row hits and staged entry
+    slots on the card (hl 16 at 30 degrees: 17 runs a line, fewer where
+    the grid's edge cuts it; each entry staged once, by its band, plus the
+    runs' padding); the same count of the chunk's bytes on the CPU
+    agrees."""
     from pcr_tpu_torch.engine import line_kernels as lk
     p = pcr.Pipeline.create(pcr.PipelineConfig(
         grid=make_grid_config(w=300.0, h=200.0),
@@ -329,6 +331,54 @@ def test_a_staged_line_chunk_counts_its_walk_as_on_the_cpu(card):
                        chunk.wt, (eng.H_pad, eng.W_state))
     assert chunk.walk == cpu
     assert 15 * 200_000 < chunk.walk[0] <= chunk.walk[1] < 2 * chunk.walk[0]
+    assert chunk.walk[2] == int(lk.rect_staged(
+        chunk.bids.cpu(), chunk.th, chunk.wt,
+        eng.H_pad // chunk.th * (eng.W_state // chunk.wt)))
+    assert chunk.walk[0] <= chunk.walk[2] < 1.05 * chunk.walk[0]
+
+
+@pytest.mark.parametrize("nf", [1, 2])
+@pytest.mark.parametrize("heading", [np.pi / 6, 0.7, np.pi / 2],
+                         ids=["pi6", "0.7", "pi2"])
+def test_k3_on_the_band_layout_gives_the_128_row_layouts_bits(
+        card, heading, nf, monkeypatch):
+    """The Line layout's row tile is K3's band (RECT_BAND_ROWS): one CTA a
+    tile, each entry staged once. A band's run is the 128-row tile's run
+    less the entries that miss the band, in order, so K3 on either layout
+    gives every cell the same terms in the same order: the same bits, from
+    a random state, with values of both signs over six decades (hl 16,
+    200k points on 300 x 200)."""
+    from pcr_tpu_torch.engine import line_kernels as lk
+    from pcr_tpu_torch.engine import torch_backend
+    spec = pcr.line_splat_spec("v", default_direction=float(heading),
+                               default_half_length=16.0)
+    spec.type = RT.WeightedAverage if nf == 2 else RT.Sum
+    c = make_cloud(200_000, 3, 300.0, 200.0)
+    rng = np.random.default_rng(5)
+    c.set_channel_array_f32("v", (rng.normal(0, 1, 200_000) * 10.0 **
+                                  rng.integers(-3, 4, 200_000)).astype(
+                                      np.float32))
+
+    def staged():
+        p = pcr.Pipeline.create(pcr.PipelineConfig(
+            grid=make_grid_config(w=300.0, h=200.0), reductions=[spec],
+            exec_mode=pcr.ExecutionMode.GPU, gpu_require_strict=True))
+        (chunk,) = p.stage(c).per_spec[0]
+        return p._engine, chunk
+    eng, band = staged()
+    monkeypatch.setattr(torch_backend, "RECT_BAND_ROWS", 128)
+    _, tall = staged()
+    assert (band.th, tall.th) == (lk.RECT_BAND_ROWS, 128)
+    assert band.params.is_cuda and band.wt == tall.wt
+    init = [torch.from_numpy(rng.normal(size=s.shape).astype(np.float32))
+            .to(card) for s in eng._states[0]]
+    got, want = ([s.clone() for s in init] for _ in range(2))
+    lk.rect_splat(got, band.params, band.bids, th=band.th, wt=band.wt)
+    lk.rect_splat(want, tall.params, tall.bids, th=tall.th, wt=tall.wt)
+    torch.cuda.synchronize()
+    for g, w, s in zip(got, want, init):
+        assert not torch.equal(g, s)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.parametrize("glyph", list(GLYPHS))

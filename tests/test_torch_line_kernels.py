@@ -4,10 +4,13 @@ the PyTorch port, on torch-CPU, where each wrapper runs its plain version.
 K3: the JAX package's Line layout (TpuEngine.prepare_line under
 PCR_PALLAS=interpret, with its ladder-padded nsub and empty-interval
 padding) goes through its Pallas builder in interpret mode and through the
-port's plain version, on the same bytes; the port's own layout is that
-buffer without the ladder padding. Tolerance atol = rtol = 1e-5: the two
-add the same float32 terms in different orders. Cells no rectangle reaches
-keep their input bits in both.
+port's plain version, on the same bytes. Tolerance atol = rtol = 1e-5: the
+two add the same float32 terms in different orders. Cells no rectangle
+reaches keep their input bits in both. The port lays Line entries out by
+tiles of RECT_BAND_ROWS rows, the band one K3 CTA owns: each band's run is
+the 128-row tile run of the JAX layout (and of the port's own layout at a
+128-row tile) less the entries that miss the band, in order, and every
+cell takes the same terms in the same order.
 
 K6: the plain version against the TPU probe
 (benchmarks/profile_rot_expand.py::build, interpret mode) at the probe's
@@ -15,6 +18,7 @@ bar, rtol = 1e-4 (its np.allclose) with atol = rot_expand.atol(...).
 """
 
 import importlib.util
+import math
 import os
 
 import numpy as np
@@ -27,7 +31,9 @@ from conftest import make_grid_config
 from pcr_tpu.engine import routing
 from pcr_tpu.engine.pallas_kernels import rect_col_tile
 from pcr_tpu.engine.tpu_backend import PALLAS_BLOCK, TpuEngine
+from pcr_tpu_torch.engine import device_prep, torch_backend
 from pcr_tpu_torch.engine import line_kernels as lk
+from pcr_tpu_torch.engine.kernels import BLOCK
 from pcr_tpu_torch.engine.torch_backend import TorchEngine
 from pcr_tpu_torch.probes import rot_expand as k6
 from test_torch_pipeline import like
@@ -43,7 +49,8 @@ def assert_close(got, want):
     assert float(excess.max(initial=0.0)) <= 0
 
 
-def line_inputs(gc, direction, n=3000, seed=0, channels=False):
+def line_inputs(gc, direction, n=3000, seed=0, channels=False,
+                half_length=5.0):
     """Routed LineParams of n points, some off-grid or filtered, with
     values of mixed signs and magnitudes."""
     rng = np.random.default_rng(seed)
@@ -52,8 +59,8 @@ def line_inputs(gc, direction, n=3000, seed=0, channels=False):
     col, row, valid = routing.assign(gc, x, y)
     valid &= rng.uniform(size=n) > 0.05
     spec = ref.line_splat_spec("v", default_direction=direction,
-                               default_half_length=5.0,
-                               max_radius_cells=8.0)
+                               default_half_length=half_length,
+                               max_radius_cells=max(8.0, half_length))
     dirs = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
     hls = rng.uniform(0.5, 9.0, n).astype(np.float32)
     lp = routing.line_params(spec.glyph, gc, x, y,
@@ -64,15 +71,20 @@ def line_inputs(gc, direction, n=3000, seed=0, channels=False):
     return lp, valid, values, col, row
 
 
+def port_engine(gc, rtype):
+    spec = port_pkg.line_splat_spec("v")
+    spec.type = rtype
+    return TorchEngine(like(port_pkg, gc),
+                       [(spec, port_pkg.get_reduction_info(rtype))],
+                       torch.device("cpu"))
+
+
 def engines(monkeypatch, gc, rtype):
     monkeypatch.setenv("PCR_PALLAS", "interpret")
     spec = ref.line_splat_spec("v")
     spec.type = rtype
     plans = [(spec, ref.get_reduction_info(rtype))]
-    return TpuEngine(gc, plans), TorchEngine(
-        like(port_pkg, gc), [(like(port_pkg, spec),
-                              port_pkg.get_reduction_info(rtype))],
-        torch.device("cpu"))
+    return TpuEngine(gc, plans), port_engine(gc, rtype)
 
 
 def jax_rect(jeng, inp):
@@ -84,6 +96,46 @@ def jax_rect(jeng, inp):
     buf = np.asarray(chunk.buf)
     params = buf[: 5 * nsub * block].reshape(nsub, 5, block)
     return chunk, params, buf[5 * nsub * block:], th
+
+
+def band_runs(params, bids, th, wt, ncb, rows):
+    """{(row band, col block): live entries (k, 5)} of a K3 layout over
+    (th, wt) tiles, each tile's run cut into bands of `rows` rows: the
+    entries whose rows meet the band, in run order (numpy)."""
+    params, bids = np.asarray(params), np.asarray(bids)
+    out = {}
+    for bid in np.unique(bids[bids >= 0]):
+        p = params[bids == bid].transpose(0, 2, 1).reshape(-1, 5)
+        p = p[(p[:, 0] <= p[:, 1]) & (p[:, 2] <= p[:, 3])]
+        rb, cb = divmod(int(bid), ncb)
+        for lo in range(rb * th, (rb + 1) * th, rows):
+            keep = (p[:, 2] <= lo + rows - 1) & (p[:, 3] >= lo)
+            if keep.any():
+                out[(lo // rows, cb)] = p[keep]
+    return out
+
+
+def assert_same_runs(got, want):
+    assert got.keys() == want.keys() and len(got) > 0
+    for key, entries in want.items():
+        assert np.array_equal(got[key], entries), key
+
+
+def assert_band_layout(params, bids, th, wt, ncb):
+    """Each run of the layout holds only entries that meet its tile, then
+    under BLOCK entries of padding (1, 0, 1, 0, 0): no tile runs empty."""
+    params, bids = np.asarray(params), np.asarray(bids)
+    r0, c0 = (bids // ncb * th)[:, None], (bids % ncb * wt)[:, None]
+    live = (params[:, 0] <= params[:, 1]) & (params[:, 2] <= params[:, 3])
+    meets = ((params[:, 0] <= c0 + wt - 1) & (params[:, 1] >= c0)
+             & (params[:, 2] <= r0 + th - 1) & (params[:, 3] >= r0))
+    assert live.any() and (meets | ~live).all()
+    for bid in np.unique(bids):
+        run = live[bids == bid].reshape(-1)
+        k = int(run.sum())
+        assert 0 < k and run[:k].all() and len(run) - k < BLOCK
+    pad = params.transpose(0, 2, 1)[~live]
+    assert (pad == [1, 0, 1, 0, 0]).all()
 
 
 def hit_cells(params, bids, shape, th, wt):
@@ -143,9 +195,12 @@ def without_native(monkeypatch, *natives):
 @pytest.mark.parametrize("tile", [4096, 64], ids=["one_tile", "tiles64"])
 def test_port_layout_is_the_jax_layout_without_ladder_padding(
         monkeypatch, tile, direction, channels, route):
-    """K3 takes the JAX package's bytes (Sum: f0 is the value in both): the
-    same sub-chunks in the same order, less the ladder padding at the end
-    and the all-padding sub-chunk the JAX layout gives each empty tile.
+    """K3 takes the JAX package's entries (Sum: f0 is the value in both):
+    each of the port's runs, over tiles of RECT_BAND_ROWS rows, is the JAX
+    layout's 128-row tile run cut to the band, the entries that miss it
+    removed, in the same order; the port pads each run to whole
+    sub-chunks and stages no empty tile (the JAX layout adds its ladder
+    padding and an all-padding sub-chunk a tile).
 
     The two routes of the port's routing.line_rects give the same arrays:
     both drop every run the home-tile or grid clip empties. The JAX
@@ -184,16 +239,15 @@ def test_port_layout_is_the_jax_layout_without_ladder_padding(
         return
 
     without_native(monkeypatch, ref_native, port_native)
-    _, jp, jb, _ = jax_rect(jeng, inp)
+    _, jp, jb, jth = jax_rect(jeng, inp)
     (st,) = port.prepare_line(0, *pinp)
     assert st.kind == "rect" and st.npoints == len(inp[0].ix0)
+    assert (jth, st.th) == (128, lk.RECT_BAND_ROWS)
+    ncb = port.W_state // st.wt
     pp, pb = st.params.numpy(), st.bids.numpy()
-    keep = np.isin(jb, pb)
-    assert (jp[~keep][:, 0] == 1).all() and (jp[~keep][:, 1] == 0).all()
-    assert np.array_equal(jb[keep][: len(pb)], pb)
-    assert np.array_equal(jp[keep][: len(pb)], pp)
-    tail = jp[keep][len(pb):]
-    assert (tail[:, 0] == 1).all() and (jb[keep][len(pb):] == pb[-1]).all()
+    assert_band_layout(pp, pb, st.th, st.wt, ncb)
+    assert_same_runs(band_runs(pp, pb, st.th, st.wt, ncb, st.th),
+                     band_runs(jp, jb, jth, st.wt, ncb, st.th))
 
 
 @pytest.mark.parametrize("route", ["found", "numpy"])
@@ -204,7 +258,6 @@ def test_lines_clipped_away_leave_no_entry(monkeypatch, route):
     padding, and tile 0's run is no longer than the numpy route's."""
     from pcr_tpu_torch import native as port_native
     from pcr_tpu_torch.engine import routing as port_routing
-    from pcr_tpu_torch.engine.kernels import BLOCK, TH
     gc = make_grid_config(w=200.0, h=150.0, tile=64)
     _, port = engines(monkeypatch, gc, RT.Sum)
     lp, valid, values, col, row = like(
@@ -225,10 +278,11 @@ def test_lines_clipped_away_leave_no_entry(monkeypatch, route):
     assert (st.bids == 0).sum() <= (want.bids == 0).sum()
     p, b = st.params.numpy(), st.bids.numpy()
     ncb = port.W_state // st.wt
-    r0, c0 = (b // ncb * TH)[:, None], (b % ncb * st.wt)[:, None]
+    th = st.th
+    r0, c0 = (b // ncb * th)[:, None], (b % ncb * st.wt)[:, None]
     live = p[:, 0] <= p[:, 1]
     meets = ((p[:, 0] <= c0 + st.wt - 1) & (p[:, 1] >= c0)
-             & (p[:, 2] <= r0 + TH - 1) & (p[:, 3] >= r0))
+             & (p[:, 2] <= r0 + th - 1) & (p[:, 3] >= r0))
     assert live.any() and (meets | ~live).all()
     # what is not live is sub-chunk padding: under BLOCK entries a tile
     per_tile = np.bincount(b, weights=live.sum(1), minlength=b.max() + 1)
@@ -236,6 +290,86 @@ def test_lines_clipped_away_leave_no_entry(monkeypatch, route):
     assert ((subs * BLOCK - per_tile < BLOCK) | (subs == 0)).all()
     pad = p.transpose(0, 2, 1)[~live]
     assert (pad[:, :4] == [1, 0, 1, 0]).all()
+
+
+HEADINGS = {"0": 0.0, "pi6": math.pi / 6, "0.7": 0.7, "pi2": math.pi / 2,
+            "2.5": 2.5}
+
+
+def band_and_tall(monkeypatch, gc, heading, route):
+    """One cloud of Lines of half length 16 (Sum) staged by `route` as the
+    port lays it out, over tiles of RECT_BAND_ROWS rows, and over 128-row
+    tiles (the layout K3 took before its bands became tiles). Returns
+    (engine, band chunk, 128-row chunk)."""
+    port = port_engine(gc, RT.Sum)
+    inp = like(port_pkg, line_inputs(gc, heading, half_length=16.0))
+    expanded = []
+    real = device_prep.line_runs_device
+    monkeypatch.setattr(device_prep, "line_runs_device",
+                        lambda *a, **k: expanded.append(1) or real(*a, **k))
+    cheap = route == "device"
+    (band,) = port.prepare_line(0, *inp, wire_cheap=cheap)
+    monkeypatch.setattr(torch_backend, "RECT_BAND_ROWS", 128)
+    (tall,) = port.prepare_line(0, *inp, wire_cheap=cheap)
+    assert bool(expanded) == cheap
+    return port, band, tall
+
+
+@pytest.mark.parametrize("route", ["host", "device"])
+@pytest.mark.parametrize("tile", [4096, 64], ids=["one_tile", "tiles64"])
+@pytest.mark.parametrize("heading", list(HEADINGS.values()),
+                         ids=list(HEADINGS))
+def test_band_layout_is_the_tall_layout_cut_into_bands(monkeypatch, heading,
+                                                       tile, route):
+    """Every entry's rectangle meets the band its bid names; each band's
+    run is the 128-row tile's run less the entries that miss the band, in
+    order; so the plain version gives the same bits on either, with one
+    field or two, from a random state."""
+    gc = make_grid_config(w=200.0, h=150.0, tile=tile)
+    port, band, tall = band_and_tall(monkeypatch, gc, heading, route)
+    assert (band.th, tall.th, band.wt) == (lk.RECT_BAND_ROWS, 128, tall.wt)
+    assert lk.rect_plan(band.th, band.wt).slices == 1
+    ncb = port.W_state // band.wt
+    bp, bb = band.params.numpy(), band.bids.numpy()
+    assert_band_layout(bp, bb, band.th, band.wt, ncb)
+    assert_same_runs(band_runs(bp, bb, band.th, band.wt, ncb, band.th),
+                     band_runs(tall.params.numpy(), tall.bids.numpy(), 128,
+                               band.wt, ncb, band.th))
+    rng = np.random.default_rng(7)
+    init = [torch.from_numpy(rng.normal(size=(port.H_pad, port.W_state))
+                             .astype(np.float32)) for _ in range(2)]
+    for nf in (1, 2):
+        got, want = ([s.clone() for s in init[:nf]] for _ in range(2))
+        lk.rect_splat_plain(got, band.params, band.bids, th=band.th,
+                            wt=band.wt)
+        lk.rect_splat_plain(want, tall.params, tall.bids, th=tall.th,
+                            wt=tall.wt)
+        for g, w, s0 in zip(got, want, init):
+            assert not torch.equal(g, s0)
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("route", ["host", "device"])
+@pytest.mark.parametrize("heading", [0.3, math.pi / 2],
+                         ids=["x_major", "y_major"])
+def test_line_chunks_stay_inside_the_entry_budget(monkeypatch, heading,
+                                                  route):
+    """_line_ranges follows each run's axis: an x-major line's runs are
+    one row and span column tiles, a y-major line's one column (33 rows
+    here, up to three bands) and span row tiles. No chunk of either stages
+    more entries than tiling.WIRE_ENTRY_BUDGET."""
+    budget = 4000
+    monkeypatch.setattr(torch_backend, "WIRE_ENTRY_BUDGET", budget)
+    gc = make_grid_config(w=200.0, h=150.0, tile=64)
+    port = port_engine(gc, RT.Sum)
+    inp = like(port_pkg, line_inputs(gc, heading, half_length=16.0))
+    chunks = port.prepare_line(0, *inp, wire_cheap=route == "device")
+    assert len(chunks) > 2
+    assert sum(c.npoints for c in chunks) == len(inp[0].ix0)
+    for c in chunks:
+        p = c.params.numpy()
+        live = int(((p[:, 0] <= p[:, 1]) & (p[:, 2] <= p[:, 3])).sum())
+        assert 0 < live <= budget
 
 
 def test_count_layout_adds_one_per_cell(monkeypatch):
@@ -397,23 +531,45 @@ def test_lines_with_no_run_stage_only_padding(monkeypatch):
     assert not any(s.any() for s in port._states[0])
 
 
-@pytest.mark.parametrize("th,wt,slices", [(128, 128, 8), (128, 64, 8),
-                                          (128, 256, 16), (24, 192, 4),
-                                          (5, 300, 3)])
+@pytest.mark.parametrize("th,wt,slices", [(128, 128, 16), (128, 64, 16),
+                                          (128, 256, 32), (24, 192, 6),
+                                          (5, 300, 3), (8, 128, 1)])
 def test_rect_plan_takes_any_tile(th, wt, slices):
-    """One CTA a band of 16 rows x 128 columns, ragged bands included."""
+    """One CTA of 128 threads a band of 8 rows x 128 columns, ragged bands
+    included: one a tile of the Line layout; 512 entries, four a thread,
+    staged at a time."""
+    assert (lk.RECT_BAND_ROWS, lk.RECT_PIECE) == (8, 512)
     plan = lk.rect_plan(th, wt)
     assert plan.slices == slices and plan.grid(7) == (7, slices)
-    assert plan.threads == 256 and plan.smem_bytes == 9 * 4 * lk.RECT_PIECE
+    assert plan.threads == 128 and plan.smem_bytes == 9 * 4 * 512
     with pytest.raises(ValueError):
         lk.rect_plan(0, 128)
 
 
+@pytest.mark.parametrize("th,wt", [(lk.RECT_BAND_ROWS, 128), (8, 64),
+                                   (128, 128), (24, 192)])
+def test_rect_staged_counts_each_run_once_a_band(th, wt):
+    """rect_staged against a loop over the runs: each run on the grid is
+    staged whole, padding included, by every band of its tile; a run
+    outside [0, nb_total) by none."""
+    nb_total = 5
+    bids = np.sort(np.random.default_rng(th + wt).integers(
+        -1, nb_total + 2, 40)).astype(np.int32)
+    bands = -(-th // lk.RECT_BAND_ROWS) * -(-wt // 128)
+    want = 0
+    for bid in np.unique(bids):
+        if 0 <= bid < nb_total:
+            want += int((bids == bid).sum()) * BLOCK * bands
+    assert want > 0
+    got = lk.rect_staged(torch.from_numpy(bids), th, wt, nb_total)
+    assert int(got) == want
+
+
 @pytest.mark.parametrize("th,wt", [(128, 128), (24, 192)])
 def test_rect_walk_counts_match_a_loop(th, wt):
-    """Records: the bands of 16 rows x 128 columns an entry's rectangle
-    meets inside its tile; hits: its rows there times the 32-column blocks
-    it meets."""
+    """Records: the bands of RECT_BAND_ROWS rows x 128 columns an entry's
+    rectangle meets inside its tile; hits: its rows there times the
+    32-column blocks it meets."""
     rng = np.random.default_rng(th + wt)
     block, ncb, nb_total = 48, 2, 4
     bids = np.sort(rng.integers(-1, nb_total + 1, 8)).astype(np.int32)
@@ -437,7 +593,9 @@ def test_rect_walk_counts_match_a_loop(th, wt):
             y0, y1 = max(y0, rj) - rj, min(y1, rj + th - 1) - rj
             if x0 > x1 or y0 > y1:
                 continue
-            records += (y1 // 16 - y0 // 16 + 1) * (x1 // 128 - x0 // 128 + 1)
+            band = lk.RECT_BAND_ROWS
+            records += ((y1 // band - y0 // band + 1)
+                        * (x1 // 128 - x0 // 128 + 1))
             hits += (y1 - y0 + 1) * (x1 // 32 - x0 // 32 + 1)
     assert records > 0
     assert lk.rect_walk_counts(torch.from_numpy(params),

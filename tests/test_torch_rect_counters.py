@@ -1,15 +1,17 @@
 """K3's walk counters on the port's device path on torch-CPU
-(PCR_TORCH_DEVICE=cpu): `rect_entries` and `rect_hits`.
+(PCR_TORCH_DEVICE=cpu): `rect_entries`, `rect_hits` and `rect_staged`.
 
 A commit of a Line chunk adds, while a profiler records, its live entries
-(those whose rectangle meets their tile, halo copies included) and the row
+(those whose rectangle meets their tile, halo copies included), the row
 hits K3's walk takes on them (line_kernels.rect_walk_counts' second
-number). `stage` counts them when it lays the chunks out, so an ingest of
-a staged cloud reads nothing of the device for them; a host-sourced ingest
-counts them only while a profiler records. Both layout routes count
-alike.
+number) and the entry slots K3's CTAs copy into shared memory (each tile
+run's sub-chunks times BLOCK times its tile's bands). `stage` counts
+them when it lays the chunks out, so an ingest of a staged cloud reads
+nothing of the device for them; a host-sourced ingest counts them only
+while a profiler records. Both layout routes count alike.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -18,11 +20,12 @@ import torch
 
 import pcr_tpu_torch as pcr
 from pcr_tpu_torch.engine import gauss_kernels, line_kernels
+from pcr_tpu_torch.engine.kernels import BLOCK
 from pcr_tpu_torch.engine.torch_backend import _WALK_COUNTERS
 from pcr_tpu_torch.utils import profiling
 
 W, H, TILE = 300, 200, 64
-NAMES = ("rect_entries", "rect_hits")
+NAMES = ("rect_entries", "rect_hits", "rect_staged")
 
 
 @pytest.fixture(autouse=True)
@@ -73,17 +76,21 @@ def counters():
 
 
 def by_hand(engine, chunk):
-    """(live entries, row hits) of a staged K3 chunk: an entry of a run of
-    a tile of the state whose rectangle, cut to that tile, keeps a cell;
-    its hits as rect_walk_counts counts them."""
+    """(live entries, row hits, staged slots) of a staged K3 chunk: an
+    entry of a run of a tile of the state whose rectangle, cut to that
+    tile, keeps a cell; its hits as rect_walk_counts counts them; and for
+    each run on the grid, each band of its tile staging the run's
+    sub-chunks whole."""
     th, wt = chunk.th, chunk.wt
     ncb = engine.W_state // wt
     nb = engine.H_pad // th * ncb
-    live = 0
+    bands = -(-th // line_kernels.RECT_BAND_ROWS) * -(-wt // 128)
+    live = staged = 0
     p = chunk.params.numpy()
     for j, bid in enumerate(chunk.bids.tolist()):
         if not 0 <= bid < nb:
             continue
+        staged += BLOCK * bands
         r0, c0 = bid // ncb * th, bid % ncb * wt
         for ax, bx, ay, by in p[j, :4].T:
             if (max(ax, c0) <= min(bx, c0 + wt - 1)
@@ -91,7 +98,7 @@ def by_hand(engine, chunk):
                 live += 1
     _, hits = line_kernels.rect_walk_counts(chunk.params, chunk.bids, th,
                                             wt, ncb, nb)
-    return live, hits
+    return live, hits, staged
 
 
 def test_the_counters_are_the_staged_entries_and_their_hits():
@@ -102,14 +109,19 @@ def test_the_counters_are_the_staged_entries_and_their_hits():
     assert {c.kind for c in chunks} == {"rect"}
     want = [by_hand(p._engine, c) for c in chunks]
     assert [c.walk for c in chunks] == want
-    assert counters() == (None, None)         # staged outside a profiler
+    assert counters() == (None,) * 3           # staged outside a profiler
     profiled(p.ingest, staged)
-    entries, hits = counters()
-    assert entries == sum(e for e, _ in want) > 400 * 10   # ~17 runs a line
-    assert hits == sum(h for _, h in want)
+    entries, hits, slots = counters()
+    assert entries == sum(w[0] for w in want) > 400 * 10   # ~17 runs a line
+    assert hits == sum(w[1] for w in want)
+    assert slots == sum(w[2] for w in want)
     assert entries <= hits < 2 * entries       # 1-2 cell runs, one row each
+    # one band a tile: every entry staged once, with its run's padding
+    assert all(c.th == line_kernels.RECT_BAND_ROWS for c in chunks)
+    runs = sum(len(c.bids.unique()) for c in chunks)
+    assert entries <= slots < entries + BLOCK * runs
     profiled(p.ingest, staged)                 # each commit adds them
-    assert counters() == (2 * entries, 2 * hits)
+    assert counters() == (2 * entries, 2 * hits, 2 * slots)
     others = {n for k, names in _WALK_COUNTERS.items() if k != "rect"
               for n in names}
     assert not others & set(profiling.snapshot()["counters"])
@@ -133,8 +145,12 @@ def test_rect_walk_reads_the_chunk_in_slices(direction, monkeypatch):
         bids = torch.cat([chunk.bids, chunk.bids[-1:]])
         got = line_kernels.rect_walk(params, bids, chunk.th, chunk.wt,
                                      (eng.H_pad, eng.W_state))
-        assert got == chunk.walk == by_hand(eng, chunk)
-        assert got[0] > 0
+        assert chunk.walk == by_hand(eng, chunk)
+        assert got == by_hand(eng, dataclasses.replace(chunk, params=params,
+                                                       bids=bids))
+        # the padding adds no entry and no hit, and one staged sub-chunk
+        assert got[:2] == chunk.walk[:2] and got[0] > 0
+        assert got[2] == chunk.walk[2] + BLOCK
 
 
 def test_nothing_counts_without_a_profiler(monkeypatch):
