@@ -38,8 +38,9 @@ Phases:
       the kernel's output state (both fields' bits), which two versions of
       a kernel that keep its bits must share, and each K2 row its walk as
       `stage` counted it (gauss_kernels.gauss_walk: gauss_entries, the
-      live entries with their halo copies, and gauss_factor_cells, the
-      factors the kernel forms);
+      live entries with their halo copies, gauss_factor_cells, the
+      factors the kernel forms, and run_skew, the longest tile run over
+      the mean one);
   (g) Gaussian pipelines on the 1000x1000 grid against the numpy oracle
       (1e-5 per cell, exact NaN footprint): sigma 4 Average 1M staged with
       state_dir + GeoTIFF + resume, sigma 1 WeightedAverage 1M, rotated
@@ -598,9 +599,10 @@ def gauss_case(torch, pcr, gk, size, n, label, glyph, want_kind, seed,
         g.cpu().numpy().tobytes() for g in got)).hexdigest()
     walk = ""
     if chunk.kind == "gauss":
-        entries, factors = chunk.walk
+        entries, factors, peak_x_runs = chunk.walk
         walk = (f"gauss_entries={entries} gauss_factor_cells={factors} "
-                f"factors_per_entry={factors / entries:.2f} ")
+                f"factors_per_entry={factors / entries:.2f} "
+                f"run_skew={peak_x_runs / entries:.3f} ")
     r = int(min(np.ceil(3 * glyph.get("default_sigma_x",
                                       glyph.get("default_sigma", 1.0))),
                 32))

@@ -17,6 +17,12 @@ CARDBENCH_TESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 SMALL = {
     "glyph_line_hl16": {"grid": {"extent_x": 96.0, "extent_y": 80.0},
                         "points": {"count": 3_000}},
+    # the DC Gaussian at its published sigma (r = 9) on a 512^2 grid of
+    # 256-cell tiles, so that the home-tile clip and the hot clusters both
+    # bite; the reference's 361 window offsets stay within seconds
+    "dc_lidar_gauss_s3": {"grid": {"extent_x": 512.0, "extent_y": 512.0,
+                                   "tile": 256},
+                          "points": {"count": 50_000}},
 }
 
 

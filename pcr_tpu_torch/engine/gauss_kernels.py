@@ -40,7 +40,8 @@ wrappers hand to the kernels; `gauss_windows` / `rot_dense_windows` are the
 clipped windows the kernels form once per entry (the plain versions mask
 with the same ones), and `block_hits` is the walk's hit test. `gauss_walk`
 and `rot_walk` count a chunk's live entries and the work the kernel does
-for them: K2's factors, K4 / K5's window cells.
+for them: K2's factors, K4 / K5's window cells; `gauss_walk` also how
+uneven K2's tile runs are.
 
 `geom` (a GaussGeom) carries the grid the masks need: the logical (H, W),
 the home-tile clip of multi-tile grids, and a row-offset view's frame.
@@ -495,23 +496,46 @@ _WALK_SUBS = 1 << 10    # sub-chunks a walk count reads at a time
 
 
 def _walk_totals(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
-                 shape, work) -> tuple:
+                 shape, work, runs: bool = False) -> tuple:
     """(entries, work) summed over a chunk's runs on state fields of
     `shape` (H_pad, W_pad), _WALK_SUBS sub-chunks at a time:
     `work(p, run, row0, col0)` gives the live entries of sub-chunks `p`
     and each one's work, where `run` marks a run on the grid and (row0,
-    col0) is its tile's first cell. Reads the device once."""
+    col0) is its tile's first cell. With `runs`, a third total: the
+    longest tile run in live entries times the runs that hold one
+    (_peak_x_runs). Reads the device once."""
     h_pad, w_pad = shape
     ncb = w_pad // wt
     nb_total = h_pad // th * ncb
     totals = torch.zeros(2, dtype=torch.int64, device=params.device)
+    per_sub = []
     for a in range(0, params.shape[0], _WALK_SUBS):
         p = params[a:a + _WALK_SUBS]
         b = bids[a:a + _WALK_SUBS, None].long()
         alive, n = work(p, (b >= 0) & (b < nb_total), b // ncb * th,
                         b % ncb * wt)
         totals += torch.stack([alive.sum(), n.sum()])
+        if runs:
+            per_sub.append(alive.sum(1))
+    if runs:
+        totals = torch.cat([totals, _peak_x_runs(per_sub, bids)])
     return tuple(totals.tolist())
+
+
+def _peak_x_runs(per_sub, bids: torch.Tensor) -> torch.Tensor:
+    """(1,) int64: the longest tile run of a chunk in live entries times
+    the number of its runs that hold a live entry, from each sub-chunk's
+    live entries `per_sub` (0 off the grid) and the ascending `bids`: a
+    run is the sub-chunks of one bid. Its ratio to the live entries is the
+    longest run over the mean one, 1 where every run is as long."""
+    live = torch.cat(per_sub + [bids.new_zeros(0, dtype=torch.int64)])
+    b = bids.long()
+    last = torch.ones_like(b, dtype=torch.bool)
+    last[:-1] = b[1:] != b[:-1]
+    ends = live.cumsum(0)[last]
+    run = torch.diff(ends, prepend=ends.new_zeros(1))
+    return (torch.cat([run, run.new_zeros(1)]).max()
+            * (run > 0).sum()).view(1)
 
 
 def rot_walk(kind: str, params: torch.Tensor, bids: torch.Tensor, th: int,
@@ -541,15 +565,18 @@ def rot_walk(kind: str, params: torch.Tensor, bids: torch.Tensor, th: int,
 
 def gauss_walk(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
                shape, geom: GaussGeom) -> tuple:
-    """(entries, factors) of a K2 chunk over state fields of `shape`
-    (H_pad, W_pad): the live entries of its runs (r >= 0), halo copies
-    included, and the factors they need: in each 8 x 128 slice of its tile
-    that its window (gauss_windows) meets, a wx for each of the window's
-    columns in the slice and a wy for each of its rows in the slice. K2's
-    walk with factor tables (narrow windows) forms each once; its other
-    walk forms wx in each warp block a window meets. On a 128-wide tile
-    that is, for every 8-row slice the window meets, its columns in the
-    tile plus its rows in the slice. Reads the device once."""
+    """(entries, factors, peak x runs) of a K2 chunk over state fields of
+    `shape` (H_pad, W_pad): the live entries of its runs (r >= 0), halo
+    copies included; the factors they need: in each 8 x 128 slice of its
+    tile that its window (gauss_windows) meets, a wx for each of the
+    window's columns in the slice and a wy for each of its rows in the
+    slice; and its longest tile run in live entries times its runs that
+    hold a live entry (_peak_x_runs). K2's walk with factor tables (narrow
+    windows) forms each factor once; its other walk forms wx in each warp
+    block a window meets. On a 128-wide tile that is, for every 8-row
+    slice the window meets, its columns in the tile plus its rows in the
+    slice. Each CTA scans its tile's whole run, so the longest run sets
+    the kernel's length. Reads the device once."""
     def work(p, run, row0, col0):
         alive = run & (p[:, 6] >= 0)
         clo, chi, rlo, rhi = gauss_windows(p[:, 0], p[:, 1], p[:, 6], geom)
@@ -563,7 +590,7 @@ def gauss_walk(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
         nrs = (yhi - row0) // SLICE_ROWS - (ylo - row0) // SLICE_ROWS + 1
         factors = nrs * (xhi - xlo + 1) + ncs * (yhi - ylo + 1)
         return alive, torch.where(met, factors, 0)
-    return _walk_totals(params, bids, th, wt, shape, work)
+    return _walk_totals(params, bids, th, wt, shape, work, runs=True)
 
 
 def rot_splat_dense_plain(states, params: torch.Tensor, bids: torch.Tensor,

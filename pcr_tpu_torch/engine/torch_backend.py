@@ -70,7 +70,8 @@ the arena's wait for a buffer included, through device_prep.sync.
 (Out-of-core band swaps copy into host bands of their own and count them
 in OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
 "rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk), a K2
-chunk's "gauss_entries" and "gauss_factor_cells" (gauss_kernels.gauss_walk)
+chunk's "gauss_entries", "gauss_factor_cells" and "gauss_peak_x_runs" (its
+longest tile run times its runs; gauss_kernels.gauss_walk)
 and a K3 chunk's "rect_entries", "rect_hits" and "rect_staged"
 (line_kernels.rect_walk), which the chunk's layout counted where a profiler
 recorded or the chunk was being staged (`staging`): a commit reads nothing
@@ -144,10 +145,10 @@ class StagedChunk:
 
     `ready` is the event of the upload the tensors came from (None on the
     CPU): `commit` makes its stream wait on it. `walk` is a K4 / K5
-    chunk's (entries, window cells), a K2 chunk's (entries, factors) or a
-    K3 chunk's (entries, row hits, staged slots), where its layout counted
-    them (TorchEngine._counted). `rmax` is a K2 chunk's largest radius,
-    which picks the kernel's walk."""
+    chunk's (entries, window cells), a K2 chunk's (entries, factors, peak
+    x runs) or a K3 chunk's (entries, row hits, staged slots), where its
+    layout counted them (TorchEngine._counted). `rmax` is a K2 chunk's
+    largest radius, which picks the kernel's walk."""
     kind: str
     params: torch.Tensor
     bids: torch.Tensor | None
@@ -162,7 +163,8 @@ class StagedChunk:
 
 _STAGING = contextvars.ContextVar("pcr_tpu_torch_staging", default=False)
 # the counters a commit adds from a chunk's `walk`, by kind
-_WALK_COUNTERS = {"gauss": ("gauss_entries", "gauss_factor_cells"),
+_WALK_COUNTERS = {"gauss": ("gauss_entries", "gauss_factor_cells",
+                             "gauss_peak_x_runs"),
                   "rect": ("rect_entries", "rect_hits", "rect_staged"),
                   "rot": ("rot_entries", "rot_window_cells"),
                   "rotp": ("rot_entries", "rot_window_cells")}

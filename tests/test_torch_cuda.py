@@ -312,6 +312,36 @@ def test_a_staged_gauss_chunk_counts_its_walk_as_on_the_cpu(card, glyph):
     assert chunk.walk[0] >= 200_000 and chunk.walk[1] > chunk.walk[0]
 
 
+def test_a_clustered_gauss_chunk_counts_its_run_skew_as_on_the_cpu(card):
+    """`stage` counts a K2 chunk's longest tile run times its runs on the
+    card, on a clustered cloud over 256-cell tiles (the home-tile clip):
+    200k uniform points and 200k more within ~4 m of one spot; the same
+    count of the chunk's bytes on the CPU agrees, and reads far above its
+    entries."""
+    spec = pcr.gaussian_splat_spec("v", default_sigma=3.0)
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=make_grid_config(w=1024.0, h=1024.0, tile=256),
+        reductions=[spec], exec_mode=pcr.ExecutionMode.GPU,
+        gpu_require_strict=True))
+    rng = np.random.default_rng(5)
+    n = 200_000
+    c = pcr.PointCloud.create(2 * n)
+    c.set_x_array(np.concatenate([rng.uniform(0, 1024, n),
+                                  rng.normal(300, 4, n)]))
+    c.set_y_array(np.concatenate([rng.uniform(0, 1024, n),
+                                  rng.normal(700, 4, n)]))
+    c.add_channel("v", pcr.DataType.Float32)
+    c.set_channel_array_f32("v", rng.uniform(0, 100, 2 * n)
+                            .astype(np.float32))
+    (chunk,) = p.stage(c).per_spec[0]
+    eng = p._engine
+    assert chunk.kind == "gauss" and chunk.params.is_cuda
+    cpu = gk.gauss_walk(chunk.params.cpu(), chunk.bids.cpu(), chunk.th,
+                        chunk.wt, (eng.H_pad, eng.W_state), eng.geom)
+    assert chunk.walk == cpu
+    assert chunk.walk[2] > 10 * chunk.walk[0] > 10 * 2 * n
+
+
 def test_a_staged_line_chunk_counts_its_walk_as_on_the_cpu(card):
     """`stage` counts a K3 chunk's live entries, row hits and staged entry
     slots on the card (hl 16 at 30 degrees: 17 runs a line, fewer where

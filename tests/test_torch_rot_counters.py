@@ -1,6 +1,6 @@
 """The port's walk counters on its device path on torch-CPU
 (PCR_TORCH_DEVICE=cpu): K4 / K5's `rot_entries` / `rot_window_cells` and
-K2's `gauss_entries` / `gauss_factor_cells`.
+K2's `gauss_entries` / `gauss_factor_cells` / `gauss_peak_x_runs`.
 
 Under a profiler a commit of a rotated chunk adds its live entries (halo
 copies included) and the cells of their windows cut to their tiles: K4's
@@ -9,7 +9,10 @@ its planes carry. A commit of a K2 chunk adds its live entries and, for
 every 8 x 128 slice of its tile that an entry's window meets, a wx for
 each of the window's columns there and a wy for each of its rows
 (gauss_kernels.gauss_walk, held here against a loop over the entries and
-the slices). `stage` counts them when it lays the chunks out, so an
+the slices), and its longest tile run in live entries times the runs that
+hold one (`gauss_peak_x_runs`, held against a count of each bid's live
+entries: its ratio to the entries is 1 where every run is as long, and
+grows with a clustered cloud's hot tiles). `stage` counts them when it lays the chunks out, so an
 ingest of a staged cloud reads nothing of the device for them; a
 host-sourced ingest counts them only while a profiler records. Staged and
 host-sourced ingests of one cloud count alike, by either layout route. A
@@ -52,9 +55,9 @@ def on_cpu(monkeypatch):
     profiling.reset()
 
 
-def pipeline(glyph, tile=TILE, **cfg):
+def pipeline(glyph, tile=TILE, size=(W, H), **cfg):
     b = pcr.BBox()
-    b.min_x, b.min_y, b.max_x, b.max_y = 0.0, 0.0, float(W), float(H)
+    b.min_x, b.min_y, b.max_x, b.max_y = 0.0, 0.0, *map(float, size)
     gc = pcr.GridConfig(bounds=b, cell_size_x=1.0, cell_size_y=-1.0,
                         tile_width=tile, tile_height=tile,
                         crs=pcr.CRS.from_epsg(3857))
@@ -126,14 +129,16 @@ def by_hand(engine, chunk):
 
 
 def gauss_by_hand(engine, params, bids, th, wt):
-    """(entries, factors) of a K2 chunk, entry by entry and slice by
-    slice: a live entry (r >= 0) in a run of a tile of the state, and in
-    every 8 x 128 slice of that tile where its window keeps a row and a
-    column, a factor for each of them."""
+    """(entries, factors, peak x runs) of a K2 chunk, entry by entry and
+    slice by slice: a live entry (r >= 0) in a run of a tile of the state,
+    and in every 8 x 128 slice of that tile where its window keeps a row
+    and a column, a factor for each of them; the most live entries of one
+    bid times the bids that hold any."""
     ncb = engine.W_state // wt
     nb = engine.H_pad // th * ncb
     p = params.numpy()
     entries = factors = 0
+    per_bid = {}
     for j, bid in enumerate(bids.tolist()):
         if not 0 <= bid < nb:
             continue
@@ -143,6 +148,7 @@ def gauss_by_hand(engine, params, bids, th, wt):
             if r < 0:
                 continue
             entries += 1
+            per_bid[bid] = per_bid.get(bid, 0) + 1
             clo, chi, rlo, rhi = (int(w) for w in gauss_kernels.gauss_windows(
                 icx, icy, r, engine.geom))
             for y0 in range(r0, r0 + th, 8):
@@ -151,7 +157,7 @@ def gauss_by_hand(engine, params, bids, th, wt):
                     cols = len(range(max(clo, x0), min(chi, x0 + 127) + 1))
                     if rows and cols:
                         factors += rows + cols
-    return entries, factors
+    return entries, factors, max(per_bid.values(), default=0) * len(per_bid)
 
 
 @pytest.mark.parametrize("kind", sorted(KERNELS))
@@ -162,14 +168,17 @@ def test_the_counters_are_the_staged_entries_and_windows(kind):
     assert {c.kind for c in chunks} == {kind}
     want = [by_hand(p._engine, c) for c in chunks]
     assert [c.walk for c in chunks] == want
-    assert counters(kind) == (None, None)      # staged outside a profiler
+    # staged outside a profiler
+    assert counters(kind) == (None,) * len(_WALK_COUNTERS[kind])
     profiled(p.ingest, staged)
-    entries, cells = counters(kind)
-    assert entries == sum(e for e, _ in want) > 300      # halo copies
-    assert cells == sum(c for _, c in want)
+    entries, cells = counters(kind)[:2]
+    assert entries == sum(w[0] for w in want) > 300      # halo copies
+    assert cells == sum(w[1] for w in want)
     assert 0 < cells < entries * (2 * RADIUS[kind] + 1) ** 2
+    once = counters(kind)
+    assert once == tuple(sum(col) for col in zip(*want))
     profiled(p.ingest, staged)                 # each commit adds them
-    assert counters(kind) == (2 * entries, 2 * cells)
+    assert counters(kind) == tuple(2 * n for n in once)
     others = {n for k, names in _WALK_COUNTERS.items() if k != kind
               for n in names} - set(_WALK_COUNTERS[kind])
     assert not others & set(profiling.snapshot()["counters"])
@@ -241,6 +250,120 @@ def test_staged_and_host_sourced_ingests_count_alike(kind, route,
     profiled(p.ingest, cloud(seed=2))
     assert counters(kind) == staged
     assert staged[0] > 0
+
+
+def points_cloud(x, y, seed=0):
+    rng = np.random.default_rng(seed)
+    c = pcr.PointCloud.create(len(x))
+    c.set_x_array(x)
+    c.set_y_array(y)
+    c.add_channel("v", pcr.DataType.Float32)
+    c.set_channel_array_f32("v",
+                            rng.uniform(0, 1, len(x)).astype(np.float32))
+    c.set_crs(pcr.CRS.from_epsg(3857))
+    return c
+
+
+# K2's tiles at sigma 1 (r = 3) are 32 rows x 128 columns
+SKEW_SIGMA = dict(default_sigma=1.0)
+
+
+def even_cloud(per_tile=50, seed=0):
+    """`per_tile` points within 2 cells of the centre of each of the four
+    32 x 128 tiles of a 256 x 64 grid: no window leaves its tile, so every
+    run holds `per_tile` live entries."""
+    rng = np.random.default_rng(seed)
+    cx = np.repeat([64.0, 192.0, 64.0, 192.0], per_tile)
+    cy = np.repeat([48.0, 48.0, 16.0, 16.0], per_tile)
+    n = len(cx)
+    return points_cloud(cx + rng.uniform(-2, 2, n),
+                        cy + rng.uniform(-2, 2, n), seed)
+
+
+def clustered_cloud(n=2000, hot=6000, seed=0):
+    """`n` uniform points over a 512 x 256 grid and `hot` more piled
+    within ~4 m of (100, 100), as a LiDAR scan's downtown tile."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([rng.uniform(0, 512, n), rng.normal(100, 4, hot)])
+    y = np.concatenate([rng.uniform(0, 256, n), rng.normal(100, 4, hot)])
+    return points_cloud(x, y, seed)
+
+
+SKEWS = {"even": (even_cloud, (256, 64), 4096),
+         "clustered": (clustered_cloud, (512, 256), TILE)}
+
+
+def runs_by_hand(engine, chunk):
+    """The most live entries (r >= 0) one bid on the state holds, times
+    the bids that hold any: from the chunk's bids and r plane alone."""
+    ncb = engine.W_state // chunk.wt
+    nb = engine.H_pad // chunk.th * ncb
+    live = (chunk.params[:, 6, :] >= 0).sum(1).tolist()
+    per_bid = {}
+    for bid, n in zip(chunk.bids.tolist(), live):
+        if 0 <= bid < nb and n:
+            per_bid[bid] = per_bid.get(bid, 0) + n
+    return max(per_bid.values(), default=0) * len(per_bid)
+
+
+@pytest.mark.parametrize("skew", list(SKEWS))
+def test_gauss_peak_x_runs_is_the_longest_run_times_the_runs(skew):
+    """An even cloud reads 1.0 (peak x runs = entries); a clustered one on
+    64-cell tiles (the home-tile clip, halo copies) reads its hot tile's
+    run over the mean run, here well above 1."""
+    make, size, tile = SKEWS[skew]
+    p = pipeline(SKEW_SIGMA, tile, size)
+    staged = p.stage(make())
+    (chunk,) = staged.per_spec[0]
+    assert chunk.kind == "gauss" and chunk.th == 32 and chunk.wt == 128
+    entries, _, peak_x_runs = chunk.walk
+    assert peak_x_runs == runs_by_hand(p._engine, chunk)
+    if skew == "even":
+        assert entries == 200 and peak_x_runs == entries
+    else:
+        assert entries > 8000                        # halo copies
+        assert peak_x_runs > 10 * entries
+    profiled(p.ingest, staged)
+    assert counters("gauss")[2] == peak_x_runs
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_the_run_skew_counts_nothing_without_a_profiler(route, monkeypatch):
+    """A host-sourced ingest of the clustered cloud counts no walk outside
+    a profiler, by either layout route; under one it adds the chunk's
+    peak x runs, which a stage of the same cloud counts alike."""
+    if route == "host":
+        monkeypatch.setenv("PCR_WIRE_CHEAP", "0")
+    p = pipeline(SKEW_SIGMA, TILE, (512, 256))
+    p.ingest(clustered_cloud())
+    p.finalize()
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
+    p = pipeline(SKEW_SIGMA, TILE, (512, 256))
+    profiled(p.ingest, clustered_cloud())
+    got = counters("gauss")
+    assert got[2] > 10 * got[0] > 0
+    (chunk,) = p.stage(clustered_cloud()).per_spec[0]
+    assert chunk.walk == got
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_staged_and_host_sourced_ingests_count_the_run_skew_alike(
+        route, monkeypatch):
+    """The clustered cloud cut into three chunks (chunk_size): each
+    chunk's peak x runs, summed, whether staged or host-sourced."""
+    if route == "host":
+        monkeypatch.setenv("PCR_WIRE_CHEAP", "0")
+    p = pipeline(SKEW_SIGMA, TILE, (512, 256), chunk_size=3000)
+    staged = p.stage(clustered_cloud(seed=4))
+    chunks = staged.per_spec[0]
+    assert len(chunks) == 3
+    want = sum(runs_by_hand(p._engine, c) for c in chunks)
+    profiled(p.ingest, staged)
+    counted = counters("gauss")
+    assert counted[2] == want > counted[0]
+    profiling.reset()
+    profiled(p.ingest, clustered_cloud(seed=4))
+    assert counters("gauss") == counted
 
 
 @pytest.mark.parametrize("route", ["device", "host"])
