@@ -39,8 +39,14 @@ Phases:
       a kernel that keep its bits must share, and each K2 row its walk as
       `stage` counted it (gauss_kernels.gauss_walk: gauss_entries, the
       live entries with their halo copies, gauss_factor_cells, the
-      factors the kernel forms, and run_skew, the longest tile run over
-      the mean one);
+      factors the kernel forms, run_skew, the longest tile run over the
+      mean one, and gauss_work_items, the CTAs that walk); then K2 on each
+      chunk of the DC LiDAR Gaussian cell's job (cardbench's
+      dc_lidar_gauss_s3: 20M lidar_tiles points on 8192x8192, sigma 3) at
+      skew 0.5 and at skew 0 (even tile runs of the same count), each
+      chunk with its CUDA-event ms and output SHA-256, at skew 0.5 against
+      plain cell by cell (gauss_rtol of each cell's terms), and the ratio
+      of the two jobs' K2 times;
   (g) Gaussian pipelines on the 1000x1000 grid against the numpy oracle
       (1e-5 per cell, exact NaN footprint): sigma 4 Average 1M staged with
       state_dir + GeoTIFF + resume, sigma 1 WeightedAverage 1M, rotated
@@ -221,6 +227,7 @@ import time
 import numpy as np
 
 SEED = 20260101
+LIDAR_SEED = 32240000601    # (f)'s DC LiDAR rows: the cell's cloud
 TOL = 1e-5
 ORACLE_S = []           # the CPU oracle's ingest walls, for the last report
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (data sheet)
@@ -488,25 +495,27 @@ def k1_case(torch, kernels, eng, staged, with_f1, label, reps):
                 rival_ms=rivals["index_put_ deterministic"])
 
 
+def event_ms(torch, fn, k):
+    """Mean CUDA-event ms of k calls of fn in a row."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(k):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / k
+
+
 def time_turns(torch, kern, plain, reps, plain_reps):
     """Mean CUDA-event ms of kern and plain over the turns plain, kernel,
     kernel, plain, after one warm-up call of each."""
-    def time_ms(fn, k):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(k):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / k
-
     plain()
     kern()
     t = {"plain": [], "kernel": []}
     for name, fn, k in (("plain", plain, plain_reps), ("kernel", kern, reps),
                         ("kernel", kern, reps), ("plain", plain, plain_reps)):
-        t[name].append(time_ms(fn, k))
+        t[name].append(event_ms(torch, fn, k))
     return float(np.mean(t["kernel"])), float(np.mean(t["plain"])), t
 
 
@@ -599,10 +608,11 @@ def gauss_case(torch, pcr, gk, size, n, label, glyph, want_kind, seed,
         g.cpu().numpy().tobytes() for g in got)).hexdigest()
     walk = ""
     if chunk.kind == "gauss":
-        entries, factors, peak_x_runs = chunk.walk
+        entries, factors, peak_x_runs, items = chunk.walk
         walk = (f"gauss_entries={entries} gauss_factor_cells={factors} "
                 f"factors_per_entry={factors / entries:.2f} "
-                f"run_skew={peak_x_runs / entries:.3f} ")
+                f"run_skew={peak_x_runs / entries:.3f} "
+                f"gauss_work_items={items} ")
     r = int(min(np.ceil(3 * glyph.get("default_sigma_x",
                                       glyph.get("default_sigma", 1.0))),
                 32))
@@ -651,6 +661,91 @@ def gauss_case(torch, pcr, gk, size, n, label, glyph, want_kind, seed,
           f"window_cells={cells:.0f} bound_ms={bms!r} ({by}) "
           f"(turns: {turns})")
     return err, ms, plain_ms, (bms, by)
+
+
+def lidar_chunks(pcr, seed, skew, count=20_000_000):
+    """The staged K2 chunks of the DC LiDAR Gaussian cell's job
+    (cardbench's dc_lidar_gauss_s3: 8192 x 8192 in 4096-cell tiles, sigma
+    3, r = 9, WeightedAverage of z) on `count` of its lidar_tiles points
+    at `skew`, and their engine."""
+    from cardbench import jobs, registry
+    from cardbench.grid import Grid
+    with open(os.path.join(registry.HERE, "configs",
+                           "dc_lidar_gauss_s3.json")) as f:
+        config = json.load(f)
+    config["points"] = dict(config["points"], skew=skew, count=count)
+    grid_ = Grid.of(config)
+    pts = registry.cloud_generator("lidar_tiles")(config["points"], grid_,
+                                                  seed)
+    p = pcr.Pipeline.create(jobs.pipeline_config(config))
+    chunks = p.stage(jobs.point_cloud(pts, 0, len(pts), ["z"],
+                                      grid_.epsg)).per_spec[0]
+    return p._engine, chunks, pts, jobs.grid_config(grid_)
+
+
+def lidar_gauss_case(torch, pcr, seed, skew, reps=5, against_plain=False):
+    """(f): K2 on each staged chunk of the DC LiDAR Gaussian cell's job
+    at `skew` (0.5: the cell's; 0: even tile runs of the same count, the
+    control), from zero states: reruns bit-identical, with
+    `against_plain` the plain version's state on the same chunk cell by
+    cell at gauss_rtol of the cell's terms (cell_rtol over the job's
+    points, an upper bound of a chunk's), the chunk's walk as `stage`
+    counted it, its CUDA-event ms and its output's SHA-256, which a
+    version of K2 that keeps its bits prints alike. Returns the chunks'
+    ms."""
+    eng, chunks, pts, gc = lidar_chunks(pcr, seed, skew)
+    shape = eng._states[0][0].shape
+    if against_plain:
+        rtol, terms = cell_rtol(gc, pts.x, pts.y, 9)
+    out = []
+    for k, chunk in enumerate(chunks):
+        label = f"DC LiDAR sigma 3 20M skew {skew} seed {seed} chunk {k}"
+        check(chunk.kind == "gauss", f"(f) {label}: routed to {chunk.kind}")
+        kern, plain, kw = eng.splat_fns(chunk)
+        got, again, scratch = ([torch.zeros(shape, device=eng.device)
+                                for _ in range(2)] for _ in range(3))
+        kern(got, chunk.params, chunk.bids, **kw)
+        kern(again, chunk.params, chunk.bids, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in zip(got, again)),
+              f"(f) {label}: reruns are not bit-identical")
+        err = ""
+        if against_plain:
+            want = [torch.zeros(shape, device=eng.device) for _ in range(2)]
+            plain(want, chunk.params, chunk.bids, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got[1] > 0, want[1] > 0),
+                  f"(f) {label}: touched footprints differ")
+            worst = 0.0
+            for g, w in zip(got, want):
+                check(torch.equal(g[gc.height:], w[gc.height:])
+                      and torch.equal(g[:, gc.width:], w[:, gc.width:]),
+                      f"(f) {label}: the state's padding differs")
+                g = g[:gc.height, :gc.width].cpu().numpy()
+                w = w[:gc.height, :gc.width].cpu().numpy()
+                diff = np.abs(g - w)
+                check(bool((diff <= rtol + rtol * np.abs(w)).all()),
+                      f"(f) {label}: kernel vs plain over gauss_rtol of a "
+                      f"cell's terms (max |diff| {float(diff.max())})")
+                worst = max(worst, float(diff.max()))
+            del want
+            err = (f"max_abs_err={worst!r} (most terms in a cell "
+                   f"{int(terms.max())}, rtol there {float(rtol.max()):.3g}) ")
+        digest = hashlib.sha256(b"".join(
+            g.cpu().numpy().tobytes() for g in got)).hexdigest()
+        ms = event_ms(torch, lambda: kern(scratch, chunk.params, chunk.bids,
+                                          **kw), reps)
+        entries, factors, peak_x_runs, items = chunk.walk
+        print(f"(f) {label}: nsub={chunk.params.shape[0]} "
+              f"gauss_entries={entries} gauss_factor_cells={factors} "
+              f"run_skew={peak_x_runs / entries:.3f} "
+              f"gauss_work_items={items} work_slots={len(chunk.work)} "
+              f"{err}kernel_ms={ms!r} state_sha256={digest}")
+        out.append(ms)
+    print(f"(f) DC LiDAR sigma 3 20M skew {skew} seed {seed}: K2 "
+          f"{sum(out)!r} ms over {len(out)} chunks ({out})")
+    return out
 
 
 def gauss_pipeline(pcr, gk, gc, specs, c, label, kinds, staged=False,
@@ -2361,6 +2456,13 @@ def main() -> int:
             gauss_case(torch, pcr, gauss_kernels, 1000, 200_000,
                        f"1000x1000 256-cell tiles 200k mixed sign {label}",
                        glyph, kind, SEED + 11, tile=256, mixed=True)
+        # K2 on the skewed tile runs of the DC LiDAR Gaussian cell and on
+        # even runs of the same count (PERF.md section 6)
+        lidar_ms = {skew: sum(lidar_gauss_case(torch, pcr, LIDAR_SEED, skew,
+                                               against_plain=skew > 0))
+                    for skew in (0.5, 0.0)}
+        print(f"(f) DC LiDAR K2 skew 0.5 over skew 0: "
+              f"{lidar_ms[0.5] / lidar_ms[0.0]:.3f}")
         # the glyph suite's headline shapes: sigma 4 (K2), the rotated rows
         kstat = {k: (max(r[0] for r in v), v[-1][1], v[-1][2], v[-1][3])
                  for k, v in fres.items()}

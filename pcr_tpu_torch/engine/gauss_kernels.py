@@ -43,6 +43,11 @@ and `rot_walk` count a chunk's live entries and the work the kernel does
 for them: K2's factors, K4 / K5's window cells; `gauss_walk` also how
 uneven K2's tile runs are.
 
+K2 takes its CTAs from a work list (`gauss_work`): each tile run's first
+sub-chunk, the longest runs first, one CTA a (run, slice). K3, K4 and K5
+launch `SplatPlan.grid`: one column of slices a sub-chunk, in which only a
+run's first sub-chunk's CTAs work.
+
 `geom` (a GaussGeom) carries the grid the masks need: the logical (H, W),
 the home-tile clip of multi-tile grids, and a row-offset view's frame.
 """
@@ -58,10 +63,10 @@ from . import _build
 from .kernels import BLOCK
 
 __all__ = ["GaussGeom", "ROT_CUT", "SplatPlan", "block_hits", "gauss_walk",
-           "gauss_windows", "rot_dense_windows", "rot_distances",
-           "rot_splat_dense", "rot_splat_dense_plain", "rot_splat_packed",
-           "rot_splat_packed_plain", "rot_walk", "sorted_splat_gauss",
-           "sorted_splat_gauss_plain", "splat_plan"]
+           "gauss_windows", "gauss_work", "rot_dense_windows",
+           "rot_distances", "rot_splat_dense", "rot_splat_dense_plain",
+           "rot_splat_packed", "rot_splat_packed_plain", "rot_walk",
+           "sorted_splat_gauss", "sorted_splat_gauss_plain", "splat_plan"]
 
 ROT_CUT = -19.931569        # -ln(1e6) * log2(e): the 1e-6 product cutoff
 WMIN = 1e-6                 # the reference's weight cutoff
@@ -99,10 +104,11 @@ _SMEM_BYTES = {
 @dataclass(frozen=True)
 class SplatPlan:
     """One launch of K2 / K4 / K5 over (th, wt) tiles: `slices` CTAs a
-    tile run (grid = nsub x slices, only a run's first sub-chunk's CTAs
-    work), `threads` a CTA, and `smem_bytes` of dynamic shared memory (one
-    staged piece of the entries' segments, windows and records; K2's
-    factor table besides)."""
+    tile run, `threads` a CTA, and `smem_bytes` of dynamic shared memory
+    (one staged piece of the entries' segments, windows and records; K2's
+    factor table besides). K4 / K5 launch `grid` (nsub x slices: only a
+    run's first sub-chunk's CTAs work); K2 one CTA a run and slice of its
+    work list (gauss_work)."""
     slices: int
     threads: int
     smem_bytes: int
@@ -186,7 +192,7 @@ def _lib():
         lib = _build.load()
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.pcr_sorted_splat_gauss.argtypes = (
-            [vp, vp, i64, vp, vp] + [i32] * 17 + [vp])
+            [vp, vp, i64, vp, vp] + [i32] * 17 + [vp, i64, vp])
         lib.pcr_rot_splat_dense.argtypes = (
             [vp, vp, i64, vp, vp] + [i32] * 15 + [vp])
         lib.pcr_rot_splat_packed.argtypes = (
@@ -259,12 +265,14 @@ def _tiles(states, wt, th):
 
 def sorted_splat_gauss(states, params: torch.Tensor, bids: torch.Tensor, *,
                        th: int, wt: int, cut: bool, geom: GaussGeom,
-                       rmax: int = -1) -> None:
+                       rmax: int = -1, chunk=None) -> None:
     """K2: fold every live entry's separable footprint into `states`, in
     place (1 field: Sum / Count; 2: Average / WeightedAverage). `rmax`, the
     largest radius of the entries (-1: not known), picks one of the card's
     two kernels (factor tables for narrow windows); both give the same
-    bits."""
+    bits. The launch takes its CTAs from gauss_work of these bids: the
+    list `chunk` (the StagedChunk whose bids these are) was staged with,
+    else one built here. Its order moves only the time, never a bit."""
     dev = _check("sorted_splat_gauss", states, params, bids, th, wt, 8,
                  torch.int32)
     if dev.type == "cpu":
@@ -273,13 +281,48 @@ def sorted_splat_gauss(states, params: torch.Tensor, bids: torch.Tensor, *,
         return
     plan = _plan_args("sorted_splat_gauss", "gauss", params, th, wt)
     _, w_pad, ncb, nb_total = _tiles(states, wt, th)
+    work = _work_of(chunk, bids, nb_total)
     _launch("sorted_splat_gauss", _lib().pcr_sorted_splat_gauss, states,
             params, bids, [int(cut), rmax, th, wt, ncb, nb_total, w_pad]
-            + geom.args() + plan)
+            + geom.args() + plan + [work.data_ptr(), len(work)])
     sorted_splat_gauss.launches += 1
 
 
 sorted_splat_gauss.launches = 0
+
+
+def _run_starts(b: torch.Tensor) -> torch.Tensor:
+    """bool (nsub,): the first sub-chunk of each run of the ascending bids
+    `b`, a run being the sub-chunks of one bid."""
+    start = torch.ones_like(b, dtype=torch.bool)
+    start[1:] = b[1:] != b[:-1]
+    return start
+
+
+def gauss_work(bids: torch.Tensor, nb_total: int) -> torch.Tensor:
+    """K2's work list: (nsub,) int32 on the bids' device, the first
+    sub-chunk of each tile run on the grid (0 <= bid < nb_total), the runs
+    longest first in sub-chunks and ties by tile id, then -1 in every
+    slot left over. Launch item i is run list[i // slices], slice i %
+    slices, so the longest runs' CTAs go out first and the short ones fill
+    the card around them. From the ascending bids alone, by a stable sort,
+    with no host synchronisation."""
+    b = bids.long()
+    runs = _run_starts(b) & (b >= 0) & (b < nb_total)
+    length = (torch.searchsorted(b, b, right=True)
+              - torch.arange(len(b), device=b.device))
+    key = torch.where(runs, length, 0)
+    order = torch.sort(-key, stable=True).indices
+    return torch.where(key[order] > 0, order, -1).to(torch.int32)
+
+
+def _work_of(chunk, bids: torch.Tensor, nb_total: int) -> torch.Tensor:
+    """The work list a K2 launch over `bids` takes: `chunk`'s, where it is
+    the StagedChunk that holds these very bids (built with its layout),
+    else gauss_work of the bids."""
+    if chunk is not None and chunk.bids is bids and chunk.work is not None:
+        return chunk.work
+    return gauss_work(bids, nb_total)
 
 
 def _entries(states, params, bids, th, wt, alive):
@@ -350,12 +393,12 @@ def gauss_windows(icx, icy, r, geom: GaussGeom):
 
 def sorted_splat_gauss_plain(states, params: torch.Tensor,
                              bids: torch.Tensor, *, th: int, wt: int,
-                             cut: bool, geom: GaussGeom,
-                             rmax: int = -1) -> None:
+                             cut: bool, geom: GaussGeom, rmax: int = -1,
+                             chunk=None) -> None:
     """K2's plain PyTorch version: every live entry's factors over its
     +-r window, cut to its tile and masked as the kernel masks them, added
-    term by term with `index_add_`, in place. `rmax` picks the card's
-    kernel and changes nothing here."""
+    term by term with `index_add_`, in place. `rmax` and `chunk` pick the
+    card's kernel and schedule it, and change nothing here."""
     p, row0, col0 = _entries(states, params, bids, th, wt,
                              lambda p: p[:, 6] >= 0)
     if not len(p):
@@ -496,39 +539,38 @@ _WALK_SUBS = 1 << 10    # sub-chunks a walk count reads at a time
 
 
 def _walk_totals(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
-                 shape, work, runs: bool = False) -> tuple:
+                 shape, work, runs=None) -> tuple:
     """(entries, work) summed over a chunk's runs on state fields of
     `shape` (H_pad, W_pad), _WALK_SUBS sub-chunks at a time:
     `work(p, run, row0, col0)` gives the live entries of sub-chunks `p`
     and each one's work, where `run` marks a run on the grid and (row0,
-    col0) is its tile's first cell. With `runs`, a third total: the
-    longest tile run in live entries times the runs that hold one
-    (_peak_x_runs). Reads the device once."""
+    col0) is its tile's first cell. With `runs`, the totals it gives from
+    each sub-chunk's live entries (0 off the grid) follow. Reads the
+    device once."""
     h_pad, w_pad = shape
     ncb = w_pad // wt
     nb_total = h_pad // th * ncb
     totals = torch.zeros(2, dtype=torch.int64, device=params.device)
-    per_sub = []
+    per_sub = [bids.new_zeros(0, dtype=torch.int64)]
     for a in range(0, params.shape[0], _WALK_SUBS):
         p = params[a:a + _WALK_SUBS]
         b = bids[a:a + _WALK_SUBS, None].long()
         alive, n = work(p, (b >= 0) & (b < nb_total), b // ncb * th,
                         b % ncb * wt)
         totals += torch.stack([alive.sum(), n.sum()])
-        if runs:
+        if runs is not None:
             per_sub.append(alive.sum(1))
-    if runs:
-        totals = torch.cat([totals, _peak_x_runs(per_sub, bids)])
+    if runs is not None:
+        totals = torch.cat([totals, runs(torch.cat(per_sub))])
     return tuple(totals.tolist())
 
 
-def _peak_x_runs(per_sub, bids: torch.Tensor) -> torch.Tensor:
+def _peak_x_runs(live: torch.Tensor, bids: torch.Tensor) -> torch.Tensor:
     """(1,) int64: the longest tile run of a chunk in live entries times
     the number of its runs that hold a live entry, from each sub-chunk's
-    live entries `per_sub` (0 off the grid) and the ascending `bids`: a
+    live entries `live` (0 off the grid) and the ascending `bids`: a
     run is the sub-chunks of one bid. Its ratio to the live entries is the
     longest run over the mean one, 1 where every run is as long."""
-    live = torch.cat(per_sub + [bids.new_zeros(0, dtype=torch.int64)])
     b = bids.long()
     last = torch.ones_like(b, dtype=torch.bool)
     last[:-1] = b[1:] != b[:-1]
@@ -565,18 +607,27 @@ def rot_walk(kind: str, params: torch.Tensor, bids: torch.Tensor, th: int,
 
 def gauss_walk(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
                shape, geom: GaussGeom) -> tuple:
-    """(entries, factors, peak x runs) of a K2 chunk over state fields of
-    `shape` (H_pad, W_pad): the live entries of its runs (r >= 0), halo
-    copies included; the factors they need: in each 8 x 128 slice of its
-    tile that its window (gauss_windows) meets, a wx for each of the
-    window's columns in the slice and a wy for each of its rows in the
-    slice; and its longest tile run in live entries times its runs that
-    hold a live entry (_peak_x_runs). K2's walk with factor tables (narrow
-    windows) forms each factor once; its other walk forms wx in each warp
-    block a window meets. On a 128-wide tile that is, for every 8-row
-    slice the window meets, its columns in the tile plus its rows in the
-    slice. Each CTA scans its tile's whole run, so the longest run sets
-    the kernel's length. Reads the device once."""
+    """(entries, factors, peak x runs, work items) of a K2 chunk over
+    state fields of `shape` (H_pad, W_pad): the live entries of its runs
+    (r >= 0), halo copies included; the factors they need: in each 8 x
+    128 slice of its tile that its window (gauss_windows) meets, a wx for
+    each of the window's columns in the slice and a wy for each of its
+    rows in the slice; its longest tile run in live entries times its runs
+    that hold a live entry (_peak_x_runs); and the items of its work list
+    (gauss_work), its runs on the grid times the slices of a tile: the
+    CTAs that walk. K2's walk with factor tables (narrow windows) forms
+    each factor once; its other walk forms wx in each warp block a window
+    meets. On a 128-wide tile that is, for every 8-row slice the window
+    meets, its columns in the tile plus its rows in the slice. Each CTA
+    scans its tile's whole run, so the longest run bounds the kernel's
+    length. Reads the device once."""
+    nb_total = shape[0] // th * (shape[1] // wt)
+    slices = th // SLICE_ROWS * (wt // SLICE_COLS)
+
+    def runs(live):
+        items = (gauss_work(bids, nb_total) >= 0).sum() * slices
+        return torch.cat([_peak_x_runs(live, bids), items.view(1)])
+
     def work(p, run, row0, col0):
         alive = run & (p[:, 6] >= 0)
         clo, chi, rlo, rhi = gauss_windows(p[:, 0], p[:, 1], p[:, 6], geom)
@@ -590,7 +641,7 @@ def gauss_walk(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
         nrs = (yhi - row0) // SLICE_ROWS - (ylo - row0) // SLICE_ROWS + 1
         factors = nrs * (xhi - xlo + 1) + ncs * (yhi - ylo + 1)
         return alive, torch.where(met, factors, 0)
-    return _walk_totals(params, bids, th, wt, shape, work, runs=True)
+    return _walk_totals(params, bids, th, wt, shape, work, runs)
 
 
 def rot_splat_dense_plain(states, params: torch.Tensor, bids: torch.Tensor,

@@ -70,8 +70,9 @@ the arena's wait for a buffer included, through device_prep.sync.
 (Out-of-core band swaps copy into host bands of their own and count them
 in OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
 "rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk), a K2
-chunk's "gauss_entries", "gauss_factor_cells" and "gauss_peak_x_runs" (its
-longest tile run times its runs; gauss_kernels.gauss_walk)
+chunk's "gauss_entries", "gauss_factor_cells", "gauss_peak_x_runs" (its
+longest tile run times its runs) and "gauss_work_items" (its work list's
+runs times slices: the CTAs that walk; gauss_kernels.gauss_walk)
 and a K3 chunk's "rect_entries", "rect_hits" and "rect_staged"
 (line_kernels.rect_walk), which the chunk's layout counted where a profiler
 recorded or the chunk was being staged (`staging`): a commit reads nothing
@@ -146,9 +147,12 @@ class StagedChunk:
     `ready` is the event of the upload the tensors came from (None on the
     CPU): `commit` makes its stream wait on it. `walk` is a K4 / K5
     chunk's (entries, window cells), a K2 chunk's (entries, factors, peak
-    x runs) or a K3 chunk's (entries, row hits, staged slots), where its
-    layout counted them (TorchEngine._counted). `rmax` is a K2 chunk's
-    largest radius, which picks the kernel's walk."""
+    x runs, work items) or a K3 chunk's (entries, row hits, staged slots),
+    where its layout counted them (TorchEngine._counted). `rmax` is a K2
+    chunk's largest radius, which picks the kernel's walk, and `work` its
+    work list (gauss_kernels.gauss_work), built with the layout, which
+    orders the kernel's CTAs: `splat_fns` hands the kernel the chunk, and
+    the kernel takes the list where it is given the chunk's own bids."""
     kind: str
     params: torch.Tensor
     bids: torch.Tensor | None
@@ -159,12 +163,13 @@ class StagedChunk:
     ready: object = None
     walk: tuple | None = None
     rmax: int = -1
+    work: torch.Tensor | None = None
 
 
 _STAGING = contextvars.ContextVar("pcr_tpu_torch_staging", default=False)
 # the counters a commit adds from a chunk's `walk`, by kind
 _WALK_COUNTERS = {"gauss": ("gauss_entries", "gauss_factor_cells",
-                             "gauss_peak_x_runs"),
+                             "gauss_peak_x_runs", "gauss_work_items"),
                   "rect": ("rect_entries", "rect_hits", "rect_staged"),
                   "rot": ("rot_entries", "rot_window_cells"),
                   "rotp": ("rot_entries", "rot_window_cells")}
@@ -911,11 +916,14 @@ class TorchEngine:
                 coef)
         params, bids = device_prep.device_layout(eb, planes, nrb * ncb,
                                                  fills, idx)
-        if plan.kind != "gauss":
+        work = None
+        if plan.kind == "gauss":
+            work = gauss_kernels.gauss_work(bids, nrb * ncb)
+        else:
             params = params.view(torch.float32)
         return self._counted(StagedChunk(plan.kind, params, bids, m, plan.th,
                                          plan.wt, plan.cut, ev,
-                                         rmax=plan.rmax))
+                                         rmax=plan.rmax, work=work))
 
     def _counted(self, chunk: StagedChunk) -> StagedChunk:
         """`chunk`, a K2 / K3 / K4 / K5 one with its walk counted
@@ -967,9 +975,12 @@ class TorchEngine:
         idx, eb = halo_copies(rng(icy - r, th, nrb), rng(icy + r, th, nrb),
                               rng(icx - r, wt, ncb), rng(icx + r, wt, ncb),
                               ncb)
-        return self._counted(self._layout_upload(
-            plan.kind, eb, nrb * ncb, segs, idx, n, th, wt, cut=plan.cut,
-            dtype=dtype, rmax=plan.rmax))
+        chunk = self._layout_upload(plan.kind, eb, nrb * ncb, segs, idx, n,
+                                    th, wt, cut=plan.cut, dtype=dtype,
+                                    rmax=plan.rmax)
+        if plan.kind == "gauss":
+            chunk.work = gauss_kernels.gauss_work(chunk.bids, nrb * ncb)
+        return self._counted(chunk)
 
     def _prepare_rotp(self, gp, valid, r, f0, n):
         """K5's chunk (TpuEngine._prepare_gaussian_rotp, :1808-1867): the
@@ -1232,7 +1243,7 @@ class TorchEngine:
         if chunk.kind == "gauss":
             return (sorted_splat_gauss, gauss_kernels.sorted_splat_gauss_plain,
                     dict(kw, cut=chunk.cut, geom=self.geom,
-                         rmax=chunk.rmax))
+                         rmax=chunk.rmax, chunk=chunk))
         if chunk.kind == "rect":
             return rect_splat, line_kernels.rect_splat_plain, kw
         if chunk.kind == "rot":

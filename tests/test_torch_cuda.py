@@ -20,6 +20,8 @@ order) on runs at the borders of its slices; K6 (the rot-expand probe) at
 the probe's rtol = 1e-4 with atol = rot_expand.atol(...).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -568,6 +570,83 @@ def test_walk_kernels_on_wide_tiles(card, glyph):
     for g, r in zip(got, want):
         assert torch.equal(g != 0, r != 0)
         torch.testing.assert_close(g, r, atol=rtol, rtol=rtol)
+
+
+@pytest.mark.parametrize("sigma,n", [(3.0, 400_000), (16.0, 150_000)],
+                         ids=["table", "wide"])
+def test_k2_keeps_its_bits_under_any_order_of_its_work_list(card, sigma, n):
+    """K2 on the skewed tile runs of clustered LiDAR (the benchmark's
+    lidar_tiles at skew 0.5 on 1024 x 1024 in 256-cell tiles, cut into
+    three chunks), by both walks (sigma 3: the factor tables; sigma 16:
+    wx in the walk): the state is bit-identical under the chunk's
+    longest-first list, that list reversed and tile order, and within
+    gauss_rtol of the plain version, cell by cell for the terms a cell can
+    add. The card builds the list the CPU builds from the same bids."""
+    from cardbench.clouds import lidar_tiles
+    from cardbench.grid import Grid
+    from pcr_tpu_torch.engine import routing
+    size, tile = 1024, 256
+    gc = make_grid_config(w=float(size), h=float(size), tile=tile)
+    pts = lidar_tiles.generate({"count": n, "tiles": 49, "skew": 0.5},
+                               Grid(0.0, 0.0, float(size), float(size), 1.0,
+                                    3857, tile), 11)
+    spec = pcr.gaussian_splat_spec("z", default_sigma=sigma)
+    spec.type = RT.WeightedAverage
+    p = pcr.Pipeline.create(pcr.PipelineConfig(
+        grid=gc, reductions=[spec], exec_mode=pcr.ExecutionMode.GPU,
+        gpu_require_strict=True, chunk_size=n // 3 + 1))
+    c = pcr.PointCloud.create(n)
+    c.set_x_array(pts.x)
+    c.set_y_array(pts.y)
+    c.add_channel("z", pcr.DataType.Float32)
+    c.set_channel_array_f32("z", pts.value)
+    chunks = p.stage(c).per_spec[0]
+    eng = p._engine
+    assert len(chunks) == 3
+    r = int(np.ceil(3 * sigma))
+    # the terms a cell can add: the points within r cells on both axes
+    col, row, ok = routing.assign(gc, pts.x, pts.y)
+    k = 2 * r + 1
+    hist = np.bincount(row[ok].astype(np.int64) * size + col[ok],
+                       minlength=size * size).reshape(size, size)
+    cs = np.pad(hist, ((r + 1, r), (r + 1, r))).cumsum(0).cumsum(1)
+    terms = cs[k:, k:] - cs[:-k, k:] - cs[k:, :-k] + cs[:-k, :-k]
+    rtol = np.maximum(TOL, 8.0 * np.sqrt(terms) * 2.0 ** -24)
+    skews = []
+    for chunk in chunks:
+        assert chunk.kind == "gauss" and chunk.rmax == min(r, 32)
+        kern, plain, kw = eng.splat_fns(chunk)
+        nb = eng.H_pad // chunk.th * (eng.W_state // chunk.wt)
+        assert torch.equal(chunk.work.cpu(),
+                           gk.gauss_work(chunk.bids.cpu(), nb))
+        runs = int((chunk.work >= 0).sum())
+        orders = {"longest": chunk.work,
+                  "reversed": torch.flip(chunk.work, [0]).contiguous(),
+                  "tile": torch.cat([torch.sort(chunk.work[:runs]).values,
+                                     chunk.work[runs:]])}
+        got = {}
+        for name, work in orders.items():
+            st = [torch.zeros_like(s) for s in eng._states[0]]
+            kern(st, chunk.params, chunk.bids,
+                 **dict(kw, chunk=dataclasses.replace(chunk, work=work)))
+            got[name] = [s.view(torch.int32) for s in st]
+        want = [torch.zeros_like(s) for s in eng._states[0]]
+        plain(want, chunk.params, chunk.bids, **kw)
+        torch.cuda.synchronize()
+        assert not torch.equal(orders["longest"], orders["tile"])
+        for name in ("reversed", "tile"):
+            assert all(torch.equal(a, b)
+                       for a, b in zip(got["longest"], got[name])), name
+        for g, w in zip(got["longest"], want):
+            g = g.view(torch.float32)[:size, :size].cpu().numpy()
+            w = w[:size, :size].cpu().numpy()
+            assert np.array_equal(g != 0, w != 0)
+            assert (np.abs(g - w) <= rtol * (1.0 + np.abs(w))).all()
+        lengths = torch.diff(torch.nonzero(gk._run_starts(
+            chunk.bids.long())).view(-1), append=torch.tensor(
+                [len(chunk.bids)], device=card))
+        skews.append(int(lengths.max()) / float(lengths.float().mean()))
+    assert min(skews) > 2                  # the downtown tiles' long runs
 
 
 def test_walk_kernels_refuse_unaligned_params(card):

@@ -1,6 +1,7 @@
 """The port's walk counters on its device path on torch-CPU
 (PCR_TORCH_DEVICE=cpu): K4 / K5's `rot_entries` / `rot_window_cells` and
-K2's `gauss_entries` / `gauss_factor_cells` / `gauss_peak_x_runs`.
+K2's `gauss_entries` / `gauss_factor_cells` / `gauss_peak_x_runs` /
+`gauss_work_items`.
 
 Under a profiler a commit of a rotated chunk adds its live entries (halo
 copies included) and the cells of their windows cut to their tiles: K4's
@@ -12,7 +13,9 @@ each of the window's columns there and a wy for each of its rows
 the slices), and its longest tile run in live entries times the runs that
 hold one (`gauss_peak_x_runs`, held against a count of each bid's live
 entries: its ratio to the entries is 1 where every run is as long, and
-grows with a clustered cloud's hot tiles). `stage` counts them when it lays the chunks out, so an
+grows with a clustered cloud's hot tiles), and the items of its work list,
+its runs on the grid times a tile's slices (`gauss_work_items`: the CTAs
+that walk). `stage` counts them when it lays the chunks out, so an
 ingest of a staged cloud reads nothing of the device for them; a
 host-sourced ingest counts them only while a profiler records. Staged and
 host-sourced ingests of one cloud count alike, by either layout route. A
@@ -129,11 +132,12 @@ def by_hand(engine, chunk):
 
 
 def gauss_by_hand(engine, params, bids, th, wt):
-    """(entries, factors, peak x runs) of a K2 chunk, entry by entry and
-    slice by slice: a live entry (r >= 0) in a run of a tile of the state,
-    and in every 8 x 128 slice of that tile where its window keeps a row
-    and a column, a factor for each of them; the most live entries of one
-    bid times the bids that hold any."""
+    """(entries, factors, peak x runs, work items) of a K2 chunk, entry by
+    entry and slice by slice: a live entry (r >= 0) in a run of a tile of
+    the state, and in every 8 x 128 slice of that tile where its window
+    keeps a row and a column, a factor for each of them; the most live
+    entries of one bid times the bids that hold any; the bids on the state
+    times the slices of a tile."""
     ncb = engine.W_state // wt
     nb = engine.H_pad // th * ncb
     p = params.numpy()
@@ -157,7 +161,9 @@ def gauss_by_hand(engine, params, bids, th, wt):
                     cols = len(range(max(clo, x0), min(chi, x0 + 127) + 1))
                     if rows and cols:
                         factors += rows + cols
-    return entries, factors, max(per_bid.values(), default=0) * len(per_bid)
+    on = {b for b in bids.tolist() if 0 <= b < nb}
+    return (entries, factors, max(per_bid.values(), default=0) * len(per_bid),
+            len(on) * (th // 8) * (wt // 128))
 
 
 @pytest.mark.parametrize("kind", sorted(KERNELS))
@@ -316,7 +322,7 @@ def test_gauss_peak_x_runs_is_the_longest_run_times_the_runs(skew):
     staged = p.stage(make())
     (chunk,) = staged.per_spec[0]
     assert chunk.kind == "gauss" and chunk.th == 32 and chunk.wt == 128
-    entries, _, peak_x_runs = chunk.walk
+    entries, _, peak_x_runs, _ = chunk.walk
     assert peak_x_runs == runs_by_hand(p._engine, chunk)
     if skew == "even":
         assert entries == 200 and peak_x_runs == entries
@@ -325,6 +331,28 @@ def test_gauss_peak_x_runs_is_the_longest_run_times_the_runs(skew):
         assert peak_x_runs > 10 * entries
     profiled(p.ingest, staged)
     assert counters("gauss")[2] == peak_x_runs
+
+
+@pytest.mark.parametrize("skew", list(SKEWS))
+def test_gauss_work_items_are_the_runs_times_the_slices(skew):
+    """The items of the chunk's work list, its runs on the grid times the
+    four slices of a 32 x 128 tile: the CTAs that walk, where the launch
+    has a slot for each sub-chunk; a commit adds them."""
+    make, size, tile = SKEWS[skew]
+    p = pipeline(SKEW_SIGMA, tile, size)
+    staged = p.stage(make())
+    (chunk,) = staged.per_spec[0]
+    eng = p._engine
+    nb = eng.H_pad // chunk.th * (eng.W_state // chunk.wt)
+    runs = len({b for b in chunk.bids.tolist() if 0 <= b < nb})
+    items = chunk.walk[3]
+    assert items == runs * 4 == int((chunk.work >= 0).sum()) * 4
+    if skew == "even":
+        assert runs == 4
+    else:
+        assert items < chunk.params.shape[0] * 4      # the hot tile's run
+    profiled(p.ingest, staged)
+    assert counters("gauss")[3] == items
 
 
 @pytest.mark.parametrize("route", ["device", "host"])
