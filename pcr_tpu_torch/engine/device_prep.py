@@ -26,14 +26,16 @@ or (under PCR_TORCH_DEVICE=cpu) the CPU's. Every step is a stable sort, an
 integer prefix sum, an integer count, `repeat_interleave`, a gather, or a
 scatter to distinct addresses: no float is added anywhere, so a rerun
 gives the same bytes. The sizes that shape a tensor come back to the host:
-two synchronisations a Gaussian or Line chunk (entries, sub-chunks) and one
-a Point chunk.
+three synchronisations a Gaussian or Line chunk (entries; the largest tile
+id, which `torch.bincount` reads on a card to size its count; sub-chunks)
+and two a Point chunk.
 
 Every host synchronisation of the device route goes through `sync`: the
-two sizes here (`halo_expand`'s entries, `device_layout`'s sub-chunks),
-the arena's wait for a buffer's last upload (torch_backend._Arena.checkout)
-and TorchEngine.block_until_ready. Its span "sync" and counter "syncs"
-(utils/profiling.py) therefore see them all.
+sizes here (`halo_expand`'s entries, `device_layout`'s count and its
+sub-chunks), the arena's wait for a buffer's last upload
+(torch_backend._Arena.checkout) and TorchEngine.block_until_ready. Its
+span "sync" and counter "syncs" (utils/profiling.py) therefore see them
+all.
 """
 
 from __future__ import annotations
@@ -80,11 +82,14 @@ def mark(name: str, device) -> None:
 
 def sync(x):
     """Block the host on the device: the value of the one-element tensor
-    `x` as an int, or the wait for an event (`x.synchronize()`) or for a
-    whole torch.device. The span "sync" and the counter "syncs" record
+    `x` as an int, the wait for an event (`x.synchronize()`) or for a
+    whole torch.device, or the result of `x()`, a call that reads the
+    device on the host. The span "sync" and the counter "syncs" record
     each call."""
     with profiling.span("sync"):
         profiling.count("syncs")
+        if callable(x):
+            return x()
         if isinstance(x, torch.Tensor):
             return int(x)
         if isinstance(x, torch.device):
@@ -153,7 +158,8 @@ def device_layout(eb, planes, nblocks: int, fills, idx=None):
     dev = eb.device
     mark("layout", dev)
     nseg = len(planes)
-    counts = torch.bincount(eb, minlength=nblocks)
+    # on a card, bincount reads eb's maximum on the host to size its count
+    counts = sync(lambda: torch.bincount(eb, minlength=nblocks))
     subs = _fdiv(counts + (BLOCK - 1), BLOCK)
     total = sync(subs.sum())
     nsub = max(total, 1)

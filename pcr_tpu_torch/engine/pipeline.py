@@ -59,12 +59,13 @@ tiles are written and the band finalized on the host; NaN over the
 untouched tiles in place; then `write_geotiff` writes the output file,
 encoding tiles on up to 8 threads.
 
-Spans (utils/profiling.py, recorded only under a torch profiler): "ingest"
-once a public `ingest` call, "ingest.route" around routing.assign,
-"ingest.tiles" around the touched-tile tracking, "finalize" once a
-`finalize` call and "finalize.mask" around the NaN written in place over
-the untouched tiles of a band; the engine opens the rest
-(engine/torch_backend.py).
+Spans (utils/profiling.py, recorded only under a torch profiler): "create"
+once a `Pipeline.create` (validation, the native thread cap, the engine's
+state and its arena), "ingest" once a public `ingest` call, "ingest.route"
+around routing.assign, "ingest.tiles" around the touched-tile tracking,
+"finalize" once a `finalize` call and "finalize.mask" around the NaN
+written in place over the untouched tiles of a band; the engine opens the
+rest (engine/torch_backend.py).
 Counters: "tiles_skips", tracking calls answered without reading a point
 (every tile already touched), and "tiles_scan_points", the points that the
 touched-tile scans of multi-tile grids read.
@@ -258,39 +259,41 @@ class Pipeline:
 
     @classmethod
     def create(cls, config: PipelineConfig) -> "Pipeline":
-        st = cls._validate_config(config)
-        if not st.ok():
-            raise PcrError(st)
-        # Cap the native OpenMP kernels' thread count (reference:
-        # omp_set_num_threads, pipeline.cpp:94-98); results are
-        # thread-count-invariant, this only bounds CPU usage. The cap is
-        # process-global, so a default config (cpu_threads=0) RESTORES the
-        # runtime default rather than inheriting a previous pipeline's cap.
-        native.set_num_threads(config.cpu_threads or 0)
-        p = cls(config, cls._resolve_backend(config))
-        for spec in config.reductions:
-            info = get_reduction_info(spec.type)
-            if info is None:
-                raise PcrError(Status.error(
-                    StatusCode.InvalidArgument,
-                    f"pipeline: unregistered reduction type "
-                    f"{ReductionType(spec.type).name}"))
-            gt = GlyphType(spec.glyph.type)
-            if (gt != GlyphType.Point
-                    and ReductionType(spec.type)
-                    not in GLYPH_SUPPORTED_REDUCTIONS):
-                raise PcrError(Status.error(
-                    StatusCode.NotImplemented,
-                    "glyph splatting only supports WeightedAverage, Average, "
-                    "Sum, or Count reduction types"))
-            p._plans.append((spec, info))
-            if info.scatter_kind == "collect":
-                from .collect_spill import CollectStream
-                p._collect[len(p._plans) - 1] = CollectStream(
-                    spill_dir=config.state_dir or None)
-        p._init_state()
-        p._load_existing_state()
-        return p
+        with profiling.span("create"):
+            st = cls._validate_config(config)
+            if not st.ok():
+                raise PcrError(st)
+            # Cap the native OpenMP kernels' thread count (reference:
+            # omp_set_num_threads, pipeline.cpp:94-98); results are
+            # thread-count-invariant, this only bounds CPU usage. The cap
+            # is process-global, so a default config (cpu_threads=0)
+            # RESTORES the runtime default rather than inheriting a previous
+            # pipeline's cap.
+            native.set_num_threads(config.cpu_threads or 0)
+            p = cls(config, cls._resolve_backend(config))
+            for spec in config.reductions:
+                info = get_reduction_info(spec.type)
+                if info is None:
+                    raise PcrError(Status.error(
+                        StatusCode.InvalidArgument,
+                        f"pipeline: unregistered reduction type "
+                        f"{ReductionType(spec.type).name}"))
+                gt = GlyphType(spec.glyph.type)
+                if (gt != GlyphType.Point
+                        and ReductionType(spec.type)
+                        not in GLYPH_SUPPORTED_REDUCTIONS):
+                    raise PcrError(Status.error(
+                        StatusCode.NotImplemented,
+                        "glyph splatting only supports WeightedAverage, "
+                        "Average, Sum, or Count reduction types"))
+                p._plans.append((spec, info))
+                if info.scatter_kind == "collect":
+                    from .collect_spill import CollectStream
+                    p._collect[len(p._plans) - 1] = CollectStream(
+                        spill_dir=config.state_dir or None)
+            p._init_state()
+            p._load_existing_state()
+            return p
 
     @staticmethod
     def _validate_config(config: PipelineConfig) -> Status:

@@ -60,8 +60,11 @@ profiler): "ingest.buffer" (`_Arena.checkout`), "ingest.pack" (the wire's
 or a scatter chunk's fill), "ingest.upload" and the counter "h2d_bytes"
 (`_Arena.put`), "ingest.layout" (a chunk laid out on the card),
 "ingest.commit", "finalize.device" (the flush and the device finalize) and
-"finalize.d2h" with the counters "d2h_bytes" and "d2h_pinned_bytes" (the
-part that landed in pinned memory: all of it from a card). A finalize is
+"finalize.d2h" with the counter "d2h_bytes", and inside it, on a card,
+"finalize.pin" (the pinned block's checkout) with the counter
+"d2h_pin_new_bytes" (what torch's pinned pool grew by to give it). The
+end of a `_to_host` copy opens the between-job gap (profiling.gap_open),
+and the entry to `commit` or to `_Arena.put` closes it. A finalize is
 one `finalize_to_host` a reduction: one copy of the band, or with a
 `state_dir` of the K state planes. Every copy of a finalize result or of
 fetch_state's planes to the host goes through `_to_host`, the one owner
@@ -338,6 +341,7 @@ class _Arena:
         """(device tensor of the first `nwords`, the copy's event). The
         caller's current stream is made to wait for the copy, so whatever
         it enqueues next may read the tensor."""
+        profiling.gap_close()
         profiling.count("h2d_bytes", 4 * nwords)     # int32 words
         with profiling.span("ingest.upload"):
             if not self.cuda:
@@ -367,21 +371,38 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     events) and counted in "d2h_bytes".
 
     A card's tensor lands, by one DMA, in a block of torch's caching
-    pinned host allocator ("d2h_pinned_bytes"), and the array is that
-    block: it keeps the pinned tensor alive, and the block goes back to
-    torch's cache only when the caller drops the array, so no later copy
-    can land in memory a caller still holds. The copy is synchronous: the
-    array may be read at once."""
+    pinned host allocator, and the array is that block: it keeps the
+    pinned tensor alive, and the block goes back to torch's cache only
+    when the caller drops the array, so no later copy can land in memory a
+    caller still holds. The block's checkout is the span "finalize.pin",
+    and what torch's pinned pool grew by to give it the counter
+    "d2h_pin_new_bytes" (0 where a cached block served; the pool rounds a
+    new block up). The copy is synchronous: the array may be read at
+    once, and its return opens the between-job gap."""
     nbytes = t.numel() * t.element_size()
     profiling.count("d2h_bytes", nbytes)
     with profiling.span("finalize.d2h"), \
             profiling.device_span("finalize.d2h", t.device):
         if t.device.type != "cuda":
-            return t.to("cpu", copy=True).numpy()
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t)
-        profiling.count("d2h_pinned_bytes", nbytes)
-        return host.numpy()
+            out = t.to("cpu", copy=True).numpy()
+        else:
+            pool = _pinned_pool_bytes() if profiling.recording() else None
+            with profiling.span("finalize.pin"):
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            if pool is not None:
+                profiling.count("d2h_pin_new_bytes",
+                                _pinned_pool_bytes() - pool)
+            host.copy_(t)
+            out = host.numpy()
+    profiling.gap_open()
+    return out
+
+
+def _pinned_pool_bytes():
+    """The bytes torch's caching pinned host allocator has ever grown by
+    (host_memory_stats' "allocated_bytes.allocated"), or None where this
+    torch does not say."""
+    return torch.cuda.host_memory_stats().get("allocated_bytes.allocated")
 
 
 def _scatter_minmax(state, cells, values, C: int, reduce: str, fill: float):
@@ -1183,6 +1204,7 @@ class TorchEngine:
 
     def commit(self, spec_idx: int, staged) -> None:
         """Apply staged chunks to the spec's states, in place, in order."""
+        profiling.gap_close()
         with profiling.span("ingest.commit"):
             _, info = self.plans[spec_idx]
             st = self._states[spec_idx]

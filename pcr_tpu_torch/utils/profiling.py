@@ -18,10 +18,25 @@ They record only while a torch profiler records
 (`torch.profiler.profile`, `trace` below, or
 `torch.autograd.profiler.emit_nvtx` under Nsight Systems): a span is then a
 `record_function` range named "pcr.<name>", on the profiler's clock in the
-same trace as the kernels and copies, and its host seconds (total and
-self: less the spans nested in it on the same thread) go into one
-process-wide table that `snapshot` reads. Otherwise a span is one flag
-check and a shared object that does nothing.
+same trace as the kernels and copies, and its host seconds (total, self:
+less the spans nested in it on the same thread, and its longest call) go
+into one process-wide table that `snapshot` reads. Otherwise a span is one
+flag check and a shared object that does nothing.
+
+Beside the spans the table keeps one interval that is no span: the
+between-job gap, row "job_gap" (`gap_open`, `gap_close`). It opens when a
+copy to the host returns (torch_backend._to_host, the end of a finalize)
+and closes at the next device work of an accumulate (the entry to
+TorchEngine.commit or to _Arena.put, whichever comes first), so it holds
+what the host does between one job's result and the next job's first
+work for the card: the finalize's tail, the result, the next job's
+`create` and its ingest up to the first upload or commit. The card has
+nothing queued then but the next engine's state fill
+(TorchEngine.__init__: a few microseconds on 1000², ~0.2 ms for two
+268 MB planes on 8192²). The gap is on no thread's stack: it has no self
+time and takes nothing from the spans it overlaps. Both ends show in a
+trace, the end of "pcr.finalize.d2h" and the start of "pcr.ingest.commit"
+or "pcr.ingest.upload".
 
 The switch is the flag torch keeps for such checks
 (`torch.autograd.profiler._is_profiler_enabled`), which every thread
@@ -44,7 +59,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["PhaseTimer", "trace", "span", "count", "device_span",
-           "recording", "snapshot", "reset"]
+           "gap_open", "gap_close", "recording", "snapshot", "reset"]
 
 PREFIX = "pcr."     # the port's spans in a trace
 
@@ -128,10 +143,11 @@ def trace(log_dir: str | None = None, name: str = "pcr_tpu_torch"):
 
 _lock = threading.Lock()
 _local = threading.local()      # .stack: this thread's open spans
-_spans: dict = {}               # name -> [total ns, self ns, calls]
+_spans: dict = {}               # name -> [total ns, self ns, calls, max ns]
 _counters: dict = {}            # name -> int
 _device_ms: dict = {}           # name -> CUDA-event ms, resolved
 _pending: list = []             # (name, start event, end event)
+_gap_t0 = None                  # host ns the open between-job gap began
 
 
 def recording() -> bool:
@@ -177,13 +193,21 @@ class _Span:
         if stack:
             stack[-1].child += dt
         with _lock:
-            rec = _spans.get(self.name)
-            if rec is None:
-                rec = _spans[self.name] = [0, 0, 0]
-            rec[0] += dt
-            rec[1] += dt - self.child
-            rec[2] += 1
+            _add(self.name, dt, dt - self.child)
         return self.range.__exit__(*exc)
+
+
+def _add(name: str, dt: int, own: int) -> None:
+    """One call of `dt` ns, `own` of them its self time, into `name`'s row.
+    Called with _lock held."""
+    rec = _spans.get(name)
+    if rec is None:
+        rec = _spans[name] = [0, 0, 0, 0]
+    rec[0] += dt
+    rec[1] += own
+    rec[2] += 1
+    if dt > rec[3]:
+        rec[3] = dt
 
 
 def span(name: str):
@@ -193,6 +217,30 @@ def span(name: str):
     if not recording():
         return _OFF
     return _Span(name)
+
+
+def gap_open() -> None:
+    """Open the between-job gap now, while a torch profiler records; a gap
+    already open opens again from now (the last copy of a finalize of
+    several reductions opens it)."""
+    global _gap_t0
+    if recording():
+        _gap_t0 = time.perf_counter_ns()
+
+
+def gap_close() -> None:
+    """Close the open between-job gap and add it to row "job_gap" (its
+    seconds, calls and longest call; no self time). A close with no gap
+    open records nothing, and a close while no profiler records drops the
+    gap (one left open when the profiler stopped); `reset` drops it too."""
+    global _gap_t0
+    if _gap_t0 is None:
+        return
+    t1 = time.perf_counter_ns()
+    with _lock:
+        t0, _gap_t0 = _gap_t0, None
+        if t0 is not None and recording():
+            _add("job_gap", t1 - t0, 0)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -251,22 +299,26 @@ def _resolve(wait: bool) -> None:
 def snapshot() -> dict:
     """The table since the process started (or the last `reset`), counting
     only blocks run while a profiler recorded: {"spans": {name: {"s",
-    "self_s", "n", "device_s"}}, "counters": {name: int}}. `device_s` is
-    None for a span with no device span of its name."""
+    "self_s", "n", "max_s", "device_s"}}, "counters": {name: int}}.
+    `max_s` is the longest single call; `device_s` is None for a span with
+    no device span of its name. Row "job_gap" is the between-job gap."""
     with _lock:
         _resolve(wait=True)
         spans = {}
         for name in set(_spans) | set(_device_ms):
-            total, own, n = _spans.get(name, (0, 0, 0))
+            total, own, n, longest = _spans.get(name, (0, 0, 0, 0))
             dev = _device_ms.get(name)
             spans[name] = {"s": total / 1e9, "self_s": own / 1e9, "n": n,
+                           "max_s": longest / 1e9,
                            "device_s": None if dev is None else dev / 1e3}
         return {"spans": spans, "counters": dict(_counters)}
 
 
 def reset() -> None:
-    """Empty the table (for tests)."""
+    """Empty the table and drop an open gap (for tests)."""
+    global _gap_t0
     with _lock:
+        _gap_t0 = None
         _spans.clear()
         _counters.clear()
         _device_ms.clear()

@@ -1,15 +1,23 @@
 """The port's spans and counters (pcr_tpu_torch.utils.profiling) on its
 device path on torch-CPU (PCR_TORCH_DEVICE=cpu).
 
-Without a profiler nothing records. Under torch.profiler every span is a
-"pcr." range nested in the caller's own range, on the profiler's clock;
-`ingest` counts once a public call; a span's self time is the rest of its
-seconds once its children's are taken out; the layout synchronises once a
-Point chunk and twice a Gaussian or Line chunk; the arena's wait counts
-once a reused buffer; `d2h_bytes` are the band's bytes (none of them
-pinned: no card); Hybrid workers leave no self time negative; and the
-bands do not change under the profiler.
+Without a profiler nothing records, the between-job gap included. Under
+torch.profiler every span is a "pcr." range nested in the caller's own
+range, on the profiler's clock; `ingest` counts once a public call and
+`create` once a `Pipeline.create`; a span's self time is the rest of its
+seconds once its children's are taken out, and its longest call lies
+between its mean and its total; the layout synchronises twice a Point
+chunk and three times a Gaussian or Line chunk (torch.bincount's host read
+of the largest tile id counts since it is timed as a sync: once and twice
+before); the arena's wait counts once a reused buffer; the between-job gap
+opens at a finalize's copy and closes at the next job's first upload or
+commit, and drops a gap the profiler stopped on; `d2h_bytes` are the
+band's bytes (no pinned block, so no `finalize.pin` and no
+`d2h_pin_new_bytes`: no card); Hybrid workers leave no self time negative;
+and the bands do not change under the profiler.
 """
+
+import sys
 
 import numpy as np
 import pytest
@@ -24,10 +32,10 @@ from pcr_tpu_torch.utils import profiling
 torch.exp(torch.linspace(-20.0, 0.0, 1 << 20))
 
 RT = pcr.ReductionType
-CPU_SPANS = {"ingest", "ingest.route", "ingest.buffer", "ingest.pack",
-             "ingest.upload", "ingest.layout", "sync", "ingest.commit",
-             "ingest.tiles", "finalize", "finalize.device", "finalize.d2h",
-             "finalize.mask"}
+CPU_SPANS = {"create", "ingest", "ingest.route", "ingest.buffer",
+             "ingest.pack", "ingest.upload", "ingest.layout", "sync",
+             "ingest.commit", "ingest.tiles", "finalize", "finalize.device",
+             "finalize.d2h", "finalize.mask"}
 W, H = 300, 200
 
 
@@ -89,6 +97,17 @@ def job(glyph="point", calls=2, **cfg):
     return p.result().band_array(0)
 
 
+def staged_jobs(jobs, glyph="point", staged=None):
+    """`jobs` whole jobs of one cloud staged once (made here unless
+    given), as a staged cell runs them; the last job's band."""
+    staged = staged or pipeline(glyph).stage(cloud())
+    for _ in range(jobs):
+        p = pipeline(glyph)
+        p.ingest(staged)
+        p.finalize()
+    return p.result().band_array(0)
+
+
 def profiled(fn, *args, **kw):
     """fn(...) under torch.profiler; (its result, the profiler)."""
     with torch.profiler.profile(
@@ -97,11 +116,20 @@ def profiled(fn, *args, **kw):
     return out, prof
 
 
-@pytest.mark.parametrize("glyph", ["point", "gaussian"])
-def test_nothing_records_without_a_profiler(glyph):
+@pytest.mark.parametrize("glyph,staged", [("point", False),
+                                          ("gaussian", False),
+                                          ("point", True)],
+                         ids=["point", "gaussian", "point-staged"])
+def test_nothing_records_without_a_profiler(glyph, staged):
+    """Two jobs back to back: neither `create`, nor the gap between them,
+    nor any other row records, and no gap is left open."""
     before = profiling.snapshot()
-    job(glyph)
+    for _ in range(2):
+        staged_jobs(1, glyph) if staged else job(glyph)
+    profiling.gap_open()
+    profiling.gap_close()
     assert profiling.snapshot() == before == {"spans": {}, "counters": {}}
+    assert profiling._gap_t0 is None
     assert profiling.span("ingest") is profiling.span("finalize")
     assert profiling.device_span("x", torch.device("cpu")) is \
         profiling.span("x")
@@ -172,12 +200,87 @@ def test_self_time_is_what_the_children_leave():
         got = spans[parent]["self_s"] + sum(spans[c]["s"] for c in children)
         assert got == pytest.approx(spans[parent]["s"], rel=1e-9, abs=1e-9)
         assert spans[parent]["self_s"] >= 0
-    for name in ("ingest.route", "sync", "finalize.d2h"):
+    for name in ("create", "ingest.route", "sync", "finalize.d2h"):
         assert spans[name]["self_s"] == spans[name]["s"]
 
 
-@pytest.mark.parametrize("glyph,per_chunk", [("point", 1), ("gaussian", 2),
-                                             ("line", 2)])
+def test_create_records_once_a_pipeline_create():
+    def creates():
+        for glyph in ("point", "gaussian", "line"):
+            pipeline(glyph)
+        job()
+    profiled(creates)
+    spans = profiling.snapshot()["spans"]
+    assert spans["create"]["n"] == 4
+    assert spans["ingest"]["n"] == 2 and spans["finalize"]["n"] == 1
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_the_longest_call_lies_between_the_mean_and_the_total(staged):
+    profiled(staged_jobs, 3) if staged else profiled(job, calls=3)
+    spans = profiling.snapshot()["spans"]
+    assert spans and ("job_gap" in spans) == staged
+    for name, row in spans.items():
+        assert row["n"] >= 1, name
+        mean = row["s"] / row["n"]
+        assert mean * (1 - 1e-12) <= row["max_s"] <= row["s"] * (1 + 1e-12)
+        if row["n"] == 1:
+            assert row["max_s"] == pytest.approx(row["s"], rel=1e-12)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_the_gap_opens_at_a_finalize_and_closes_at_the_next_accumulate(
+        staged, monkeypatch):
+    """Three jobs, one after another: the gap opens where a finalize's
+    copy returns and closes at the next job's first device work, the
+    upload of a host cloud or the commit of a staged one; two gaps, each
+    with no self time, and the one the last job opened is still open."""
+    calls = []
+    gap_open, gap_close = profiling.gap_open, profiling.gap_close
+
+    def logged(what, fn):
+        def call():
+            calls.append((what, sys._getframe(1).f_code.co_name,
+                          profiling._gap_t0 is not None))
+            fn()
+        return call
+    monkeypatch.setattr(profiling, "gap_open", logged("open", gap_open))
+    monkeypatch.setattr(profiling, "gap_close", logged("close", gap_close))
+
+    def jobs():
+        if staged:
+            return staged_jobs(3, staged=pipeline().stage(cloud()))
+        for _ in range(3):
+            job(calls=1)
+    profiled(jobs)
+    opens = [c for c in calls if c[0] == "open"]
+    assert len(opens) == 3 and {c[1] for c in opens} == {"_to_host"}
+    # the closes that found a gap open: one each after the first job
+    closing = [c[1] for c in calls if c[0] == "close" and c[2]]
+    assert closing == ["commit" if staged else "put"] * 2
+    assert profiling._gap_t0 is not None      # the last job's, still open
+    row = profiling.snapshot()["spans"]["job_gap"]
+    assert row["n"] == 2
+    assert row["self_s"] == 0 and row["device_s"] is None
+    assert 0 < row["max_s"] <= row["s"]
+
+
+def test_a_gap_the_profiler_stopped_on_records_nothing():
+    staged = pipeline().stage(cloud())
+    profiled(staged_jobs, 1, staged=staged)     # leaves its gap open
+    assert profiling._gap_t0 is not None
+    staged_jobs(1, staged=staged)               # closes it, unrecorded
+    assert profiling._gap_t0 is None
+    profiled(staged_jobs, 1, staged=staged)
+    spans = profiling.snapshot()["spans"]
+    assert "job_gap" not in spans
+    assert spans["create"]["n"] == 2 and spans["ingest.commit"]["n"] == 2
+    profiling.reset()
+    assert profiling._gap_t0 is None            # reset drops an open gap
+
+
+@pytest.mark.parametrize("glyph,per_chunk", [("point", 2), ("gaussian", 3),
+                                             ("line", 3)])
 def test_the_layout_synchronises_as_its_docstring_says(glyph, per_chunk):
     p = pipeline(glyph, chunk_size=6000)
     staged, _ = profiled(p.stage, cloud())
@@ -229,7 +332,9 @@ def test_d2h_bytes_are_the_bands(with_state, tmp_path):
     assert band.nbytes == W * H * 4
     planes = 2 if with_state else 1
     assert snap["counters"]["d2h_bytes"] == planes * W * H * 4
-    assert "d2h_pinned_bytes" not in snap["counters"]   # pageable off a card
+    # pageable off a card: no pinned block, so no checkout to time
+    assert "d2h_pin_new_bytes" not in snap["counters"]
+    assert "finalize.pin" not in snap["spans"]
     assert snap["spans"]["finalize.d2h"]["n"] == 1
     assert snap["spans"]["finalize.d2h"]["device_s"] is None   # no card
     assert snap["counters"]["h2d_bytes"] == 2 * 20000 * 8  # cell | value
