@@ -44,9 +44,11 @@ Phases:
       chunk of the DC LiDAR Gaussian cell's job (cardbench's
       dc_lidar_gauss_s3: 20M lidar_tiles points on 8192x8192, sigma 3) at
       skew 0.5 and at skew 0 (even tile runs of the same count), each
-      chunk with its CUDA-event ms and output SHA-256, at skew 0.5 against
-      plain cell by cell (gauss_rtol of each cell's terms), and the ratio
-      of the two jobs' K2 times;
+      chunk bit-equal to the launch with every tile run whole, with its
+      CUDA-event ms by either list, its cut items and gauss_split_subs,
+      and its output SHA-256, at skew 0.5 against plain cell by cell
+      (gauss_rtol of each cell's terms), and the ratio of the two jobs' K2
+      times;
   (g) Gaussian pipelines on the 1000x1000 grid against the numpy oracle
       (1e-5 per cell, exact NaN footprint): sigma 4 Average 1M staged with
       state_dir + GeoTIFF + resume, sigma 1 WeightedAverage 1M, rotated
@@ -213,6 +215,7 @@ data-sheet peaks); the last line is
 """
 
 import contextlib
+import dataclasses
 import functools
 import hashlib
 import json
@@ -608,7 +611,7 @@ def gauss_case(torch, pcr, gk, size, n, label, glyph, want_kind, seed,
         g.cpu().numpy().tobytes() for g in got)).hexdigest()
     walk = ""
     if chunk.kind == "gauss":
-        entries, factors, peak_x_runs, items = chunk.walk
+        entries, factors, peak_x_runs, items, _ = chunk.walk
         walk = (f"gauss_entries={entries} gauss_factor_cells={factors} "
                 f"factors_per_entry={factors / entries:.2f} "
                 f"run_skew={peak_x_runs / entries:.3f} "
@@ -686,13 +689,15 @@ def lidar_chunks(pcr, seed, skew, count=20_000_000):
 def lidar_gauss_case(torch, pcr, seed, skew, reps=5, against_plain=False):
     """(f): K2 on each staged chunk of the DC LiDAR Gaussian cell's job
     at `skew` (0.5: the cell's; 0: even tile runs of the same count, the
-    control), from zero states: reruns bit-identical, with
-    `against_plain` the plain version's state on the same chunk cell by
-    cell at gauss_rtol of the cell's terms (cell_rtol over the job's
-    points, an upper bound of a chunk's), the chunk's walk as `stage`
-    counted it, its CUDA-event ms and its output's SHA-256, which a
-    version of K2 that keeps its bits prints alike. Returns the chunks'
-    ms."""
+    control), from zero states: reruns bit-identical, the state of the
+    chunk's list (which cuts its long runs) bit-equal to that of the list
+    with every run whole, with `against_plain` the plain version's state
+    on the same chunk cell by cell at gauss_rtol of the cell's terms
+    (cell_rtol over the job's points, an upper bound of a chunk's), the
+    chunk's walk as `stage` counted it, its CUDA-event ms by either list
+    and its output's SHA-256, which a version of K2 that keeps its bits
+    prints alike. Returns the chunks' ms."""
+    from pcr_tpu_torch.engine import gauss_kernels as gk
     eng, chunks, pts, gc = lidar_chunks(pcr, seed, skew)
     shape = eng._states[0][0].shape
     if against_plain:
@@ -702,14 +707,22 @@ def lidar_gauss_case(torch, pcr, seed, skew, reps=5, against_plain=False):
         label = f"DC LiDAR sigma 3 20M skew {skew} seed {seed} chunk {k}"
         check(chunk.kind == "gauss", f"(f) {label}: routed to {chunk.kind}")
         kern, plain, kw = eng.splat_fns(chunk)
-        got, again, scratch = ([torch.zeros(shape, device=eng.device)
-                                for _ in range(2)] for _ in range(3))
+        nb = eng.H_pad // chunk.th * (eng.W_state // chunk.wt)
+        whole = dict(kw, chunk=dataclasses.replace(
+            chunk, work=gk.gauss_work(chunk.bids, nb, 0), split_subs=0))
+        got, again, scratch, entire = ([torch.zeros(shape, device=eng.device)
+                                        for _ in range(2)] for _ in range(4))
         kern(got, chunk.params, chunk.bids, **kw)
         kern(again, chunk.params, chunk.bids, **kw)
+        kern(entire, chunk.params, chunk.bids, **whole)
         torch.cuda.synchronize()
         check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
                   for x, y in zip(got, again)),
               f"(f) {label}: reruns are not bit-identical")
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in zip(got, entire)),
+              f"(f) {label}: the cut runs' state differs from whole runs'")
+        del entire
         err = ""
         if against_plain:
             want = [torch.zeros(shape, device=eng.device) for _ in range(2)]
@@ -736,12 +749,19 @@ def lidar_gauss_case(torch, pcr, seed, skew, reps=5, against_plain=False):
             g.cpu().numpy().tobytes() for g in got)).hexdigest()
         ms = event_ms(torch, lambda: kern(scratch, chunk.params, chunk.bids,
                                           **kw), reps)
-        entries, factors, peak_x_runs, items = chunk.walk
+        whole_ms = event_ms(torch, lambda: kern(
+            scratch, chunk.params, chunk.bids, **whole), reps)
+        entries, factors, peak_x_runs, items, split = chunk.walk
+        cut_items = int((chunk.work[:, 2] >= 0).sum())
+        longest = int((chunk.work[:1, 1] - chunk.work[:1, 0]).sum())
         print(f"(f) {label}: nsub={chunk.params.shape[0]} "
               f"gauss_entries={entries} gauss_factor_cells={factors} "
               f"run_skew={peak_x_runs / entries:.3f} "
-              f"gauss_work_items={items} work_slots={len(chunk.work)} "
-              f"{err}kernel_ms={ms!r} state_sha256={digest}")
+              f"gauss_work_items={items} gauss_split_subs={split} "
+              f"cut_items={cut_items} longest_item_subs={longest} "
+              f"work_slots={len(chunk.work)} "
+              f"{err}kernel_ms={ms!r} whole_runs_ms={whole_ms!r} "
+              f"state_sha256={digest}")
         out.append(ms)
     print(f"(f) DC LiDAR sigma 3 20M skew {skew} seed {seed}: K2 "
           f"{sum(out)!r} ms over {len(out)} chunks ({out})")

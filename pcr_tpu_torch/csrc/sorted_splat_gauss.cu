@@ -8,8 +8,11 @@
 //                                      bit patterns; dead entries carry r = -1)
 //   bids    (nsub,) int32, ascending  tile id = row_block * ncb + col_block
 //   s0, s1  (H_pad, W_pad) float32    state fields, updated IN PLACE
-//   work    (nwork,) int32            the runs' first sub-chunks in launch
-//                                     order, -1 in unused slots (Schedule)
+//   work    (nwork, 4) int32         the work list's items in launch order,
+//                                     [first, end, tail, base], -1 rows in
+//                                     unused slots (Schedule)
+//   scratch                           the cut runs' arrival counters and
+//                                     partial sums (Schedule)
 //
 // Every entry deposits the separable footprint wy[h] * wx[w] over the cells
 // of its sub-chunk's (th, wt) tile: f0 * wy * wx into field 0 and wy * wx into
@@ -51,34 +54,56 @@
 // and per-axis mask, and every product and sum is in the same order, so
 // both walks below give the first version's bits.
 //
-// Schedule. A launch is one CTA a (tile run, slice) item of the wrapper's
-// work list (gauss_kernels.gauss_work): the runs' first sub-chunks, longest
-// run first (in sub-chunks; ties by tile id), and item i is run
-// work[i / slices], slice i % slices, so all the slices of the longest run
-// go out first. The card hands out CTAs in the order of their index, so
-// this is longest-processing-time-first: each long CTA starts while the
-// short ones fill the card around it, and none is left to run alone at the
-// end. The grid was (nsub, slices) before, dispatched slice-major: every
-// tile's slice-0 CTA went first and every tile's last slice in the last
-// part of the launch, so on LiDAR runs (the longest 30 to 58 times the
-// mean) the hot tiles' last slices started near the end and walked their
-// 116k-218k entries at low occupancy, and the CTAs of a run's other
-// sub-chunks left at once. A (tile, slice) is still owned by one CTA and
-// walked in entry order, so the order of the list moves only the time,
-// never a bit. The bids, not the list, say what a run is: a CTA whose item
-// is off the grid or not a run's first sub-chunk leaves, as every CTA of a
-// run's later sub-chunks did before. Slots past the runs are -1, sorted last, and their CTAs
-// leave: the list is built on the card from the bids alone, which tell the
-// runs but not on the host how many there are.
+// Schedule. A launch is one CTA an (item, slice) of the wrapper's work
+// list (gauss_kernels.gauss_work): item i is row work[i / slices], slice i
+// % slices of its tile. An item is a tile run, or a segment of a long one:
+// a run longer than a bound taken from the chunk's own runs (a few times
+// its mean run, and at least a floor of sub-chunks) is cut into the
+// fewest segments of at most the bound, as even as whole sub-chunks allow.
+// Items go longest first in sub-chunks (ties by first sub-chunk), and the
+// card hands out CTAs in the order of their index, so this is
+// longest-processing-time-first: each long CTA starts while the short
+// ones fill the card around it, and none is left to run alone at the end.
+// The grid was (nsub, slices) before, dispatched slice-major, and the hot
+// tiles' last slices started near the end; with whole runs longest first
+// (the list with no run cut), the longest run's
+// eight CTAs alone still took 11.7 and 18.0 ms of a 20M-point DC LiDAR
+// job's 20.8 and 30.9 ms (runs of 115,851 and 218,016 entries), which no
+// order of whole runs shortens.
 //
-// Measured (H100, CUDA events, the two chunks of a 20M-point DC LiDAR job
-// at sigma 3): 27.39 -> 20.81 ms and 37.86 -> 30.92 ms on two clouds,
-// against 12.2 ms on even runs of the same count; a persistent launch that
-// takes the same items by an atomic counter was slower (23.26, 31.38 ms).
-// What is left is one CTA's walk: the longest run's eight CTAs alone take
-// 11.7 and 18.0 ms. Cutting a run across CTAs would need each sub-chunk's
-// sum kept apart and added in order, as the state takes one sum a
-// sub-chunk.
+// The cut keeps the bits. A cell of a (tile, slice) ends as ((state +
+// S_0) + S_1) + ... + S_last, where S_k, the sub-chunk's sum, depends on
+// sub-chunk k's entries alone, added in entry order from 0. A cut run's
+// head segment adds its S_k into the state as a whole run does; each
+// later (tail) segment writes its S_k to a scratch block of nf x 8 x 128
+// floats, sub-chunk k's at (base + k - tail) * slices + slice. Every CTA
+// of a cut run then fences its writes and adds the sub-chunks it walked
+// to the (run, slice)'s arrival counter; the one whose add completes the
+// run's sub-chunks, by the bids, folds the tails' sums into its cells in
+// sub-chunk order, one add a cell and sub-chunk, after the head's own
+// adds (made before the head arrived): the same sums, in the same order,
+// as one CTA walking the whole run. Nothing spins and nothing waits on
+// another CTA; one memset zeroes the counters before the launch, and a
+// launch whose list cuts no run (no scratch) takes instantiations with
+// none of this in their walk. The bids, not the list, say what a run is:
+// a CTA whose whole run is off the grid or does not start a run leaves,
+// an item of a cut run that fails those tests traps, and so does an
+// arrival past the run's sub-chunks; a fold happens only when a run's
+// sub-chunks are all walked. Slots past the items are -1, sorted last,
+// and their CTAs leave: the list is built on the card from the bids
+// alone, which tell the runs but not on the host how many there are.
+//
+// Measured (H100, CUDA events, both chunks of a 20M-point DC LiDAR job at
+// sigma 3): 20.7-21.1 ms with whole runs, 14.1 ms cut with the fold
+// inlined and 13.8 with the fold a call (arrive), 13.4 with no fold at all
+// (the longest item's CTAs 12.5 -> 1.3 ms), against 12.0 ms on even runs
+// of the same count; a sweep of the bound put its best at 3-5 sub-chunks
+// here (twice the mean run), a bound of one sub-chunk 0.7 ms slower and
+// whole runs 7.5. Only the table walk cuts. The wide walk's time is its work: on the same job at
+// sigma 16 the cut list with no fold ran 56.24-56.28 ms against whole
+// runs' 56.29-56.41, and the fold of its 112k tail sums made it 57.7; so
+// it takes whole runs, a cut list traps in it, and the entry point gives
+// it no scratch.
 //
 // Two walks, two kernels; a launch takes one by the chunk's largest radius,
 // which the routing knows. Both give the same bits, so the choice moves
@@ -191,16 +216,157 @@ __device__ __forceinline__ void add_slice(float* s0, float* s1, float* acc0,
   }
 }
 
-// The CTA's item of the work list: run work[item / slices], the run's first
-// sub-chunk, and slice item % slices of its tile. False where the slot is
-// unused (-1): the CTA leaves.
-__device__ __forceinline__ bool work_item(const int32_t* __restrict__ work,
-                                          int slices, int64_t& first,
-                                          int& slice) {
-  const unsigned item = blockIdx.x;
-  first = work[item / static_cast<unsigned>(slices)];
-  slice = static_cast<int>(item % static_cast<unsigned>(slices));
-  return first >= 0;
+// What a launch runs over: the chunk, its work list, the tiles' slices and
+// the scratch of the cut runs' partial sums
+struct Work {
+  const int32_t* params;
+  const int32_t* bids;
+  int64_t nsub;
+  const int4* list;     // [first, end, tail, base] an item (gauss_work)
+  int64_t nwork;
+  int slices;
+  int32_t* arrivals;    // a counter a (cut run, slice), zeroed each launch
+  float* partials;      // NF x 8 x 128 floats a (sub-chunk, slice)
+  int64_t blocks;       // (sub-chunk, slice) sums the scratch holds
+};
+
+// The CTA's item of the work list and its slice: list row blockIdx.x /
+// slices, slice blockIdx.x % slices. The bids, not the list, say what a
+// run is: the CTA leaves where the row is unused (-1), its tile is off the
+// grid, or a whole run's first sub-chunk does not start a run. An item of
+// a cut run that fails those tests traps: the run's fold would never come,
+// and its tails' sums would be lost. `first` and `end` are the sub-chunks
+// it walks, `bid` its tile; `part` is the scratch block of its first
+// sub-chunk's sums where its item is a cut run's tail segment (the next
+// sub-chunk's is `slices` blocks on), else -1: its sums go to the state.
+__device__ __forceinline__ bool work_item(const Work& work, int nb_total,
+                                          int64_t& first, int64_t& end,
+                                          int& bid, int& slice,
+                                          int64_t& part) {
+  const unsigned s = static_cast<unsigned>(work.slices);
+  const int4 it = work.list[blockIdx.x / s];
+  slice = static_cast<int>(blockIdx.x % s);
+  if (it.x < 0) return false;
+  first = it.x;
+  bid = work.bids[first];
+  const bool tail = it.z >= 0 && it.x >= it.z;
+  if (bid < 0 || bid >= nb_total ||
+      (!tail && first > 0 && work.bids[first - 1] == bid)) {
+    if (it.z >= 0) __trap();
+    return false;
+  }
+  end = run_end(work.bids, first, work.nsub, bid);
+  part = -1;
+  if (it.z >= 0) {
+    end = min(end, static_cast<int64_t>(it.y));
+    // a cut run's sums must lie inside the scratch
+    if ((static_cast<int64_t>(it.w) + end - it.z) * work.slices > work.blocks)
+      __trap();
+    if (tail)
+      part = (static_cast<int64_t>(it.w) + it.x - it.z) * work.slices + slice;
+  }
+  return true;
+}
+
+// A sub-chunk's sums into the state, or where `part` is a scratch block,
+// into that block, [NF][8][128] floats; the accumulators are zeroed
+template <int NF>
+__device__ __forceinline__ void put_sums(const Work& work, int64_t part,
+                                         float* s0, float* s1, float* acc0,
+                                         float* acc1, int row_lo, int col,
+                                         int w_pad) {
+  if (part < 0) {
+    add_slice<NF>(s0, s1, acc0, acc1, row_lo, col, w_pad);
+    return;
+  }
+  float* p = work.partials + part * (NF * kSliceRows * kSliceCols) +
+             threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kSliceRows; ++i) {
+    p[i * kSliceCols] = acc0[i];
+    acc0[i] = 0.0f;
+    if constexpr (NF == 2) {
+      p[(kSliceRows + i) * kSliceCols] = acc1[i];
+      acc1[i] = 0.0f;
+    }
+  }
+}
+
+// A load at L2 that the compiler keeps after the fence before it
+__device__ __forceinline__ float load_cg(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The first sub-chunk of the run of `bid` that holds sub-chunk `at`
+__device__ __forceinline__ int64_t run_begin(const int32_t* __restrict__ bids,
+                                             int64_t at, int bid) {
+  int64_t lo = 0, hi = at;
+  while (lo < hi) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    if (bids[mid] < bid) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// After a CTA of a cut run has walked its sub-chunks: its arrival, and
+// where it is the run's last CTA of this slice to arrive, the fold. Each
+// CTA counts the sub-chunks it walked; the one whose count completes the
+// run's (by the bids) adds the tails' sums into its 8 x 128 cells, one
+// sub-chunk at a time in sub-chunk order, after the head's own adds, as
+// the whole run's CTA adds them. Nothing waits on another CTA. `flag` is
+// a word of shared memory that the walk no longer reads. Not inlined: the
+// fold's registers inlined spilled 64-72 B in the table walk's loop, and
+// the job's K2 ran 0.35 ms slower (14.12 against 13.77 ms on the DC LiDAR
+// job, both seeds; 13.43 with no fold at all).
+template <int NF>
+__device__ __noinline__ void arrive(const Work& work, float* s0, float* s1,
+                                       int row_lo, int col, int w_pad,
+                                       int* flag) {
+  const int4 it = work.list[blockIdx.x / static_cast<unsigned>(work.slices)];
+  if (it.z < 0) return;  // a whole run: its sums are in the state
+  const int slice = static_cast<int>(blockIdx.x % work.slices);
+  const int bid = work.bids[it.x];
+  const int64_t end = run_end(work.bids, it.x, work.nsub, bid);
+  __threadfence();  // this CTA's adds or partials, before its arrival
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int64_t walked = min(end, static_cast<int64_t>(it.y)) - it.x;
+    const int64_t run = end - run_begin(work.bids, it.x, bid);
+    int32_t* count =
+        work.arrivals + static_cast<int64_t>(it.w) * work.slices + slice;
+    const int64_t done = atomicAdd(count, static_cast<int>(walked)) + walked;
+    if (done > run) __trap();  // a sub-chunk walked twice: a corrupt plan
+    *flag = done == run;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();  // the other CTAs' adds and partials, before the fold
+  float v0[kSliceRows], v1[NF == 2 ? kSliceRows : 1];
+#pragma unroll
+  for (int i = 0; i < kSliceRows; ++i) {
+    const int64_t off = static_cast<int64_t>(row_lo + i) * w_pad + col;
+    v0[i] = load_cg(s0 + off);
+    if constexpr (NF == 2) v1[i] = load_cg(s1 + off);
+  }
+  for (int64_t k = it.z; k < end; ++k) {
+    const int64_t block = (it.w + k - it.z) * work.slices + slice;
+    const float* p = work.partials + block * (NF * kSliceRows * kSliceCols) +
+                     threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < kSliceRows; ++i) {
+      v0[i] += load_cg(p + i * kSliceCols);
+      if constexpr (NF == 2)
+        v1[i] += load_cg(p + (kSliceRows + i) * kSliceCols);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kSliceRows; ++i) {
+    const int64_t off = static_cast<int64_t>(row_lo + i) * w_pad + col;
+    s0[off] = v0[i];
+    if constexpr (NF == 2) s1[off] = v1[i];
+  }
 }
 
 // K2 with factor tables: every factor once per entry and slice
@@ -224,11 +390,9 @@ static_assert(kSeg * kPiece == 8 * kThreads, "two 16-byte copies a thread");
 }  // namespace tbl
 
 // K2's walk with factor tables
-template <int NF, bool CUT>
+template <int NF, bool CUT, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
-sorted_splat_gauss_kernel(const int32_t* __restrict__ params,
-                          const int32_t* __restrict__ bids, int64_t nsub,
-                          const int32_t* __restrict__ work, int slices,
+sorted_splat_gauss_kernel(const __grid_constant__ Work work,
                           float* __restrict__ s0, float* __restrict__ s1,
                           GaussGeom g) {
   using namespace tbl;
@@ -256,13 +420,10 @@ sorted_splat_gauss_kernel(const int32_t* __restrict__ params,
   const unsigned wys_at = static_cast<unsigned>(wys - smemf);
   const unsigned table_at = static_cast<unsigned>(table - smemf);
 
-  int64_t first;
-  int slice;
-  if (!work_item(work, slices, first, slice)) return;
-  const int bid = bids[first];
-  // the list only orders the CTAs: the bids say which items are runs
-  if (bid < 0 || bid >= g.nb_total || (first > 0 && bids[first - 1] == bid))
-    return;
+  int64_t first, end, part;
+  int bid, slice;
+  if (!work_item(work, g.nb_total, first, end, bid, slice, part)) return;
+  if constexpr (!SPLIT) part = -1;
   const int col_slices = g.wt / kSliceCols;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
@@ -274,8 +435,8 @@ sorted_splat_gauss_kernel(const int32_t* __restrict__ params,
   const int r_hi = row_lo + kSliceRows - 1;
   const int s_lo = col - t, s_hi = s_lo + kSliceCols - 1;
 
-  const int32_t* run = params + first * kSeg * kBlock;
-  const int64_t npiece = (run_end(bids, first, nsub, bid) - first) * kPieces;
+  const int32_t* run = work.params + first * kSeg * kBlock;
+  const int64_t npiece = (end - first) * kPieces;
   // thread t's two 16-byte copies of a piece: vector t % 32 of segments
   // t / 32 and t / 32 + 4
   const int to = (t >> 5) * kPiece + 4 * lane;
@@ -421,9 +582,12 @@ sorted_splat_gauss_kernel(const int32_t* __restrict__ params,
       b0 = b1;
       if (b0 < nlive) __syncthreads();  // the walk is over; refill
     }
-    if (q % kPieces == kPieces - 1)  // the sub-chunk's last piece
-      add_slice<NF>(s0, s1, acc0, acc1, row_lo, col, g.w_pad);
+    if (q % kPieces == kPieces - 1) {  // the sub-chunk's last piece
+      put_sums<NF>(work, part, s0, s1, acc0, acc1, row_lo, col, g.w_pad);
+      if (part >= 0) part += work.slices;
+    }
   }
+  if constexpr (SPLIT) arrive<NF>(work, s0, s1, row_lo, col, g.w_pad, smem);
 }
 
 // K2 forming wx in the walk
@@ -437,12 +601,11 @@ constexpr int kSmemBytes = (kSeg + 4 + 4 + 2 + 8) * kPiece * 4;
 
 }  // namespace wlk
 
-// K2's walk forming wx in the walk
+// K2's walk forming wx in the walk, over whole runs: a cut list traps
+// (work_item, with no scratch), and the entry point gives it none
 template <int NF, bool CUT>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
-sorted_splat_gauss_wide_kernel(const int32_t* __restrict__ params,
-                               const int32_t* __restrict__ bids, int64_t nsub,
-                               const int32_t* __restrict__ work, int slices,
+sorted_splat_gauss_wide_kernel(const __grid_constant__ Work work,
                                float* __restrict__ s0, float* __restrict__ s1,
                                GaussGeom g) {
   using namespace wlk;
@@ -456,13 +619,9 @@ sorted_splat_gauss_wide_kernel(const int32_t* __restrict__ params,
   float* wys = reinterpret_cast<float*>(col_win + kPiece);  // [kPiece][8]
   const float* entf = reinterpret_cast<const float*>(ent);
 
-  int64_t first;
-  int slice;
-  if (!work_item(work, slices, first, slice)) return;
-  const int bid = bids[first];
-  // the list only orders the CTAs: the bids say which items are runs
-  if (bid < 0 || bid >= g.nb_total || (first > 0 && bids[first - 1] == bid))
-    return;
+  int64_t first, end, part;
+  int bid, slice;
+  if (!work_item(work, g.nb_total, first, end, bid, slice, part)) return;
   const int col_slices = g.wt / kSliceCols;
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -474,8 +633,8 @@ sorted_splat_gauss_wide_kernel(const int32_t* __restrict__ params,
   const int c_lo = col - lane, c_hi = c_lo + 31;
   const int r_hi = row_lo + kSliceRows - 1;
 
-  const int32_t* run = params + first * kSeg * kBlock;
-  const int64_t npiece = (run_end(bids, first, nsub, bid) - first) * kPieces;
+  const int32_t* run = work.params + first * kSeg * kBlock;
+  const int64_t npiece = (end - first) * kPieces;
   float acc0[kSliceRows], acc1[NF == 2 ? kSliceRows : 1];
 #pragma unroll
   for (int i = 0; i < kSliceRows; ++i) {
@@ -565,40 +724,29 @@ constexpr int kPlanSmem = tbl::kSmemBytes > wlk::kSmemBytes
                               ? tbl::kSmemBytes
                               : wlk::kSmemBytes;
 
-// What a launch runs over: the chunk, its work list and the tiles' slices
-struct Work {
-  const int32_t* params;
-  const int32_t* bids;
-  int64_t nsub;
-  const int32_t* list;
-  int64_t nwork;
-  int slices;
-};
-
-template <bool TABLE, int NF, bool CUT>
+template <bool TABLE, int NF, bool CUT, bool SPLIT>
 int launch(const Work& w, float* f0, float* f1, const GaussGeom& g,
            cudaStream_t st) {
-  const auto kernel = TABLE ? sorted_splat_gauss_kernel<NF, CUT>
+  const auto kernel = TABLE ? sorted_splat_gauss_kernel<NF, CUT, SPLIT>
                             : sorted_splat_gauss_wide_kernel<NF, CUT>;
   const int smem = TABLE ? tbl::kSmemBytes : wlk::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // one CTA an item: the list's runs times the slices of a tile
+  // one CTA an item: the list's items times the slices of a tile
   const unsigned grid = static_cast<unsigned>(w.nwork * w.slices);
-  kernel<<<grid, kThreads, smem, st>>>(w.params, w.bids, w.nsub, w.list,
-                                       w.slices, f0, f1, g);
+  kernel<<<grid, kThreads, smem, st>>>(w, f0, f1, g);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool TABLE>
+template <bool TABLE, bool SPLIT>
 int launch_walk(const Work& w, float* f0, float* f1, int nf, int cut,
                 const GaussGeom& g, cudaStream_t st) {
   if (nf == 1)
-    return cut ? launch<TABLE, 1, true>(w, f0, f1, g, st)
-               : launch<TABLE, 1, false>(w, f0, f1, g, st);
-  return cut ? launch<TABLE, 2, true>(w, f0, f1, g, st)
-             : launch<TABLE, 2, false>(w, f0, f1, g, st);
+    return cut ? launch<TABLE, 1, true, SPLIT>(w, f0, f1, g, st)
+               : launch<TABLE, 1, false, SPLIT>(w, f0, f1, g, st);
+  return cut ? launch<TABLE, 2, true, SPLIT>(w, f0, f1, g, st)
+             : launch<TABLE, 2, false, SPLIT>(w, f0, f1, g, st);
 }
 
 }  // namespace
@@ -607,42 +755,66 @@ extern "C" {
 
 int pcr_sorted_splat_gauss_block() { return kBlock; }
 int pcr_sorted_splat_gauss_piece() { return tbl::kPiece; }
+int pcr_sorted_splat_gauss_table_radius() { return kTableRadius; }
 int pcr_sorted_splat_gauss_table() { return tbl::kTable; }
 
 // Launches K2 on `stream`; returns the cudaError_t of the launch (0 = ok).
 // th must be a multiple of 8 and wt of 128; `slices` and `smem` are the
 // wrapper's plan (gauss_kernels.splat_plan), `work` its work list of `nwork`
-// runs (gauss_kernels.gauss_work: each run's first sub-chunk, -1 in an
-// unused slot), one CTA a run and slice. `rmax`, the chunk's largest
-// radius (-1: not known), picks the walk: the factor tables up to
-// kTableRadius. Allocates nothing and does not synchronise.
+// items (gauss_kernels.gauss_work: [first, end, tail, base] a tile run or
+// a segment of one, -1 in an unused row), one CTA an item and slice.
+// `scratch`, 16-byte aligned, holds `blocks` counters, padded to 16 bytes,
+// then `blocks` (sub-chunk, slice) sums of nf x 8 x 128 floats for the cut
+// runs' tail segments; the counters are zeroed here, by one asynchronous
+// memset before the launch. `rmax`, the chunk's largest radius (-1: not
+// known), picks the walk: the factor tables up to kTableRadius, the only
+// walk that takes a cut list and scratch. Allocates nothing and does not
+// synchronise.
 int pcr_sorted_splat_gauss(const void* params, const void* bids, int64_t nsub,
                            void* s0, void* s1, int nf, int cut, int rmax,
                            int th, int wt, int ncb, int nb_total, int w_pad,
                            int H, int W,
                            int multi_tile, int tile_w, int tile_h,
                            int row_offset, int global_h, int slices, int smem,
-                           const void* work, int64_t nwork, void* stream) {
+                           const void* work, int64_t nwork, void* scratch,
+                           int64_t blocks, void* stream) {
   if (nsub <= 0 || nwork == 0) return static_cast<int>(cudaSuccess);
   if (slices <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  // the wrapper plans the grid, the shared memory and the work list; the
-  // first two must be the kernel's own, the list at most a run a sub-chunk
+  const bool table = rmax >= 0 && rmax <= kTableRadius;
+  // the wrapper plans the grid, the shared memory, the work list and the
+  // scratch; the first two must be the kernel's own, the list at most an
+  // item a sub-chunk
   if (th % kSliceRows || wt % kSliceCols || (nf != 1 && nf != 2) ||
       slices != (th / kSliceRows) * (wt / kSliceCols) || smem != kPlanSmem ||
       reinterpret_cast<uintptr_t>(params) % 16 || work == nullptr ||
-      nwork < 0 || nwork > nsub || nwork > INT32_MAX / slices)
+      reinterpret_cast<uintptr_t>(work) % 16 || nwork < 0 || nwork > nsub ||
+      nwork > INT32_MAX / slices || blocks < 0 ||
+      (blocks > 0 && (!table || scratch == nullptr ||
+                      reinterpret_cast<uintptr_t>(scratch) % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   const GaussGeom g{th, wt, ncb, nb_total, w_pad, H, W, multi_tile,
                     tile_w, tile_h, row_offset, global_h};
+  auto* arrivals = static_cast<int32_t*>(scratch);
   const Work w{static_cast<const int32_t*>(params),
                static_cast<const int32_t*>(bids), nsub,
-               static_cast<const int32_t*>(work), nwork, slices};
+               static_cast<const int4*>(work), nwork, slices, arrivals,
+               blocks > 0 ? reinterpret_cast<float*>(arrivals +
+                                                     (blocks + 3) / 4 * 4)
+                          : nullptr,
+               blocks};
   auto* f0 = static_cast<float*>(s0);
   auto* f1 = static_cast<float*>(s1);
   auto st = static_cast<cudaStream_t>(stream);
-  return rmax >= 0 && rmax <= kTableRadius
-             ? launch_walk<true>(w, f0, f1, nf, cut, g, st)
-             : launch_walk<false>(w, f0, f1, nf, cut, g, st);
+  if (blocks > 0) {
+    const cudaError_t err =
+        cudaMemsetAsync(arrivals, 0, blocks * sizeof(int32_t), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // a launch whose list cuts no run (no scratch) takes the kernels that
+  // add every sum into the state, with nothing of the cut in their walk
+  if (!table) return launch_walk<false, false>(w, f0, f1, nf, cut, g, st);
+  return blocks > 0 ? launch_walk<true, true>(w, f0, f1, nf, cut, g, st)
+                    : launch_walk<true, false>(w, f0, f1, nf, cut, g, st);
 }
 
 }  // extern "C"

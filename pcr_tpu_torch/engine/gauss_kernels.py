@@ -43,10 +43,13 @@ and `rot_walk` count a chunk's live entries and the work the kernel does
 for them: K2's factors, K4 / K5's window cells; `gauss_walk` also how
 uneven K2's tile runs are.
 
-K2 takes its CTAs from a work list (`gauss_work`): each tile run's first
-sub-chunk, the longest runs first, one CTA a (run, slice). K3, K4 and K5
-launch `SplatPlan.grid`: one column of slices a sub-chunk, in which only a
-run's first sub-chunk's CTAs work.
+K2 takes its CTAs from a work list (`gauss_work`): each tile run, or each
+segment of a run cut for its length, the longest items first, one CTA an
+(item, slice). A cut run's later segments walk their sub-chunks' sums into
+a scratch of partials, which the last of the run's CTAs to finish folds
+into the state in sub-chunk order. K3, K4 and K5 launch `SplatPlan.grid`:
+one column of slices a sub-chunk, in which only a run's first sub-chunk's
+CTAs work.
 
 `geom` (a GaussGeom) carries the grid the masks need: the logical (H, W),
 the home-tile clip of multi-tile grids, and a row-offset view's frame.
@@ -76,7 +79,8 @@ _PLAIN_BUDGET = {"cpu": 1 << 22, "cuda": 1 << 26}
 # The walk's shapes (csrc/splat_walk.cuh): a CTA's slice of a tile, the
 # block of a warp, the entries staged at a time (K4 / K5 and K2's walk of
 # wide windows: PIECE; K2's walk with factor tables: GAUSS_PIECE, one a
-# thread), the factor slots a K2 table round forms at most, and Hopper's
+# thread), the factor slots a K2 table round forms at most, the widest
+# radius that walk takes (the only K2 walk that cuts runs), and Hopper's
 # shared memory per CTA.
 SLICE_ROWS, SLICE_COLS = 8, 128
 WARP_COLS = 32
@@ -84,6 +88,7 @@ THREADS = 128
 PIECE = 256
 GAUSS_PIECE = THREADS
 GAUSS_TABLE = 1600
+GAUSS_TABLE_RADIUS = 13
 SMEM_LIMIT = 232_448
 # shared memory of a launch in bytes. K4 / K5, per staged entry: its
 # segments, its window for the ballot, and the records the walk reads (the
@@ -99,6 +104,11 @@ _SMEM_BYTES = {
                  (8 + 4 + (4 + 2 + 8)) * PIECE * 4),
     "rot": (9 + 4 + (4 + 4 + 8)) * PIECE * 4,
     "rotp": (12 + 4 + (4 + 4 + 8)) * PIECE * 4}
+# K2's run segments (gauss_work). A tile run is cut only where it is longer
+# than SPLIT_MULT times the chunk's mean run on the grid and than
+# SPLIT_FLOOR sub-chunks, into segments of at most that bound.
+SPLIT_MULT = 2
+SPLIT_FLOOR = 4
 
 
 @dataclass(frozen=True)
@@ -107,8 +117,8 @@ class SplatPlan:
     tile run, `threads` a CTA, and `smem_bytes` of dynamic shared memory
     (one staged piece of the entries' segments, windows and records; K2's
     factor table besides). K4 / K5 launch `grid` (nsub x slices: only a
-    run's first sub-chunk's CTAs work); K2 one CTA a run and slice of its
-    work list (gauss_work)."""
+    run's first sub-chunk's CTAs work); K2 one CTA an item and slice of
+    its work list (gauss_work: a whole run, or a segment of a cut one)."""
     slices: int
     threads: int
     smem_bytes: int
@@ -192,24 +202,26 @@ def _lib():
         lib = _build.load()
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.pcr_sorted_splat_gauss.argtypes = (
-            [vp, vp, i64, vp, vp] + [i32] * 17 + [vp, i64, vp])
+            [vp, vp, i64, vp, vp] + [i32] * 17 + [vp, i64, vp, i64, vp])
         lib.pcr_rot_splat_dense.argtypes = (
             [vp, vp, i64, vp, vp] + [i32] * 15 + [vp])
         lib.pcr_rot_splat_packed.argtypes = (
             [vp, vp, i64, vp, vp] + [i32] * 8 + [vp])
         sizes = (lib.pcr_sorted_splat_gauss_block, lib.pcr_rot_splat_block,
                  lib.pcr_sorted_splat_gauss_piece, lib.pcr_rot_splat_piece,
-                 lib.pcr_sorted_splat_gauss_table)
+                 lib.pcr_sorted_splat_gauss_table,
+                 lib.pcr_sorted_splat_gauss_table_radius)
         for fn in (lib.pcr_sorted_splat_gauss, lib.pcr_rot_splat_dense,
                    lib.pcr_rot_splat_packed, *sizes):
             fn.restype = i32
         for fn in sizes:
             fn.argtypes = []
         if [fn() for fn in sizes] != [BLOCK, BLOCK, GAUSS_PIECE, PIECE,
-                                      GAUSS_TABLE]:
+                                      GAUSS_TABLE, GAUSS_TABLE_RADIUS]:
             raise RuntimeError("gauss_kernels: the kernels' block, piece or "
                                "table size differs from BLOCK / PIECE / "
-                               "GAUSS_PIECE / GAUSS_TABLE")
+                               "GAUSS_PIECE / GAUSS_TABLE / "
+                               "GAUSS_TABLE_RADIUS")
         _BOUND = lib
     return _BOUND
 
@@ -271,8 +283,11 @@ def sorted_splat_gauss(states, params: torch.Tensor, bids: torch.Tensor, *,
     largest radius of the entries (-1: not known), picks one of the card's
     two kernels (factor tables for narrow windows); both give the same
     bits. The launch takes its CTAs from gauss_work of these bids: the
-    list `chunk` (the StagedChunk whose bids these are) was staged with,
-    else one built here. Its order moves only the time, never a bit."""
+    list `chunk` (the StagedChunk whose bids these are) was laid out with,
+    else one built here with every run whole; where the list cuts runs,
+    scratch for the sums of their later segments from torch's caching
+    allocator on the current stream. Neither the list's order nor its cuts
+    move a bit."""
     dev = _check("sorted_splat_gauss", states, params, bids, th, wt, 8,
                  torch.int32)
     if dev.type == "cpu":
@@ -281,10 +296,13 @@ def sorted_splat_gauss(states, params: torch.Tensor, bids: torch.Tensor, *,
         return
     plan = _plan_args("sorted_splat_gauss", "gauss", params, th, wt)
     _, w_pad, ncb, nb_total = _tiles(states, wt, th)
-    work = _work_of(chunk, bids, nb_total)
+    work, subs = _work_of(chunk, bids, nb_total)
+    scratch = _split_scratch(subs, len(states), dev)
     _launch("sorted_splat_gauss", _lib().pcr_sorted_splat_gauss, states,
             params, bids, [int(cut), rmax, th, wt, ncb, nb_total, w_pad]
-            + geom.args() + plan + [work.data_ptr(), len(work)])
+            + geom.args() + plan + [work.data_ptr(), len(work),
+                                    scratch.data_ptr() if subs else None,
+                                    subs])
     sorted_splat_gauss.launches += 1
 
 
@@ -299,30 +317,106 @@ def _run_starts(b: torch.Tensor) -> torch.Tensor:
     return start
 
 
-def gauss_work(bids: torch.Tensor, nb_total: int) -> torch.Tensor:
-    """K2's work list: (nsub,) int32 on the bids' device, the first
-    sub-chunk of each tile run on the grid (0 <= bid < nb_total), the runs
-    longest first in sub-chunks and ties by tile id, then -1 in every
-    slot left over. Launch item i is run list[i // slices], slice i %
-    slices, so the longest runs' CTAs go out first and the short ones fill
-    the card around them. From the ascending bids alone, by a stable sort,
-    with no host synchronisation."""
+def _segments(length: torch.Tensor, m: torch.Tensor):
+    """(head, q, rem) of runs of `length` sub-chunks cut into `m`
+    segments as even as whole sub-chunks allow: the first rem segments
+    hold q + 1 sub-chunks, the others q, and the head segment `head`."""
+    q, rem = length // m, length % m
+    return q + (rem > 0).long(), q, rem
+
+
+def gauss_work(bids: torch.Tensor, nb_total: int,
+               budget: int | None = None) -> torch.Tensor:
+    """K2's work list: (nsub, 4) int32 on the bids' device, an item a row
+    [first, end, tail, base]: the sub-chunks [first, end) of a tile run on
+    the grid (0 <= bid < nb_total), or of a segment of one, the items
+    longest first in sub-chunks and ties by first sub-chunk, then rows of
+    -1 in every slot left over. Launch item i is row i // slices, slice i
+    % slices, so the longest items' CTAs go out first and the short ones
+    fill the card around them.
+
+    A run longer than the bound, the larger of SPLIT_FLOOR and SPLIT_MULT
+    times the chunk's mean run on the grid (both in sub-chunks), is cut
+    into the fewest segments of at most the bound, as even as whole
+    sub-chunks allow. Its rows carry `tail`, the run's first sub-chunk
+    after its head segment, and `base`, the scratch sub-chunk that tail
+    takes: the head's CTAs add their sums into the state, the others walk
+    theirs into scratch sub-chunks base + (k - tail); a whole run's rows
+    carry -1 in both. The runs take scratch longest first; with `budget`,
+    a run whose tails would take the scratch past `budget` sub-chunks, and
+    every run after it, stays whole (budget 0: the list of whole runs).
+    So even runs, each within SPLIT_MULT times the mean, give the list of
+    whole runs and need no scratch. From the ascending bids alone, by
+    stable sorts, with no host synchronisation."""
     b = bids.long()
-    runs = _run_starts(b) & (b >= 0) & (b < nb_total)
-    length = (torch.searchsorted(b, b, right=True)
-              - torch.arange(len(b), device=b.device))
-    key = torch.where(runs, length, 0)
+    j = torch.arange(len(b), device=b.device)
+    start = _run_starts(b)
+    first = torch.cummax(torch.where(start, j, 0), 0).values
+    length = torch.searchsorted(b, b, right=True) - first
+    on = (b >= 0) & (b < nb_total)
+    runs = start & on
+    m = torch.ones_like(b)
+    cut, base = torch.zeros_like(runs), torch.zeros_like(b)
+    if budget != 0:
+        # the bound: ceil(SPLIT_MULT x the mean run), in whole numbers
+        total = torch.where(runs, length, 0).sum()
+        nruns = runs.sum().clamp(min=1)
+        bound = torch.div(SPLIT_MULT * total + nruns - 1, nruns,
+                          rounding_mode="floor").clamp(min=SPLIT_FLOOR)
+        m = torch.div(length + bound - 1, bound, rounding_mode="floor")
+        head = _segments(length, m)[0]
+        # scratch for the cut runs' tails, longest runs first
+        tails = torch.where(runs & (m > 1), length - head, 0)
+        order = torch.sort(-torch.where(runs, length, 0), stable=True).indices
+        t = tails[order]
+        room = t.cumsum(0)
+        keep = t > 0
+        if budget is not None:
+            keep &= room <= budget
+        cut = cut.scatter_(0, order, keep)[first] & on
+        base = base.scatter_(0, order, room - t)[first]
+    # each sub-chunk that starts a segment, and the segment's length
+    head, q, rem = _segments(length, torch.where(cut, m, 1))
+    o = j - first
+    wide = rem * (q + 1)
+    seg = torch.where(o < wide, o % (q + 1) == 0, (o - wide) % q == 0) & on
+    key = torch.where(seg, torch.where(o < wide, q + 1, q), 0)
     order = torch.sort(-key, stable=True).indices
-    return torch.where(key[order] > 0, order, -1).to(torch.int32)
+    cut = cut[order]
+    plan = torch.stack([order, order + key[order],
+                        torch.where(cut, first[order] + head[order], -1),
+                        torch.where(cut, base[order], -1)], 1)
+    return torch.where(key[order, None] > 0, plan, -1).to(torch.int32)
 
 
-def _work_of(chunk, bids: torch.Tensor, nb_total: int) -> torch.Tensor:
-    """The work list a K2 launch over `bids` takes: `chunk`'s, where it is
-    the StagedChunk that holds these very bids (built with its layout),
-    else gauss_work of the bids."""
+def _tail_subs(work: torch.Tensor) -> torch.Tensor:
+    """() int64: the sub-chunks a work list's tail segments walk into
+    scratch, its cut runs' sub-chunks after their heads."""
+    tail = (work[:, 2] >= 0) & (work[:, 0] >= work[:, 2])
+    return torch.where(tail, work[:, 1] - work[:, 0], 0).long().sum()
+
+
+def _work_of(chunk, bids: torch.Tensor, nb_total: int):
+    """(work list, scratch sums) of a K2 launch over `bids`: `chunk`'s
+    list and the (sub-chunk, slice) sums its cut runs walk into scratch,
+    where it is the StagedChunk that holds these very bids (built and
+    counted with its layout), else gauss_work of the bids with every run
+    whole, which needs none."""
     if chunk is not None and chunk.bids is bids and chunk.work is not None:
-        return chunk.work
-    return gauss_work(bids, nb_total)
+        return chunk.work, chunk.split_subs
+    return gauss_work(bids, nb_total, 0), 0
+
+
+def _split_scratch(subs: int, nf: int, dev) -> torch.Tensor | None:
+    """The scratch of a launch whose cut runs walk `subs` (sub-chunk,
+    slice) sums into it: a counter of arrivals for each (the kernel zeroes
+    them), padded to 16 bytes, then each sum's nf x 8 x 128 float32
+    cells; None where no run is cut."""
+    if not subs:
+        return None
+    counters = -(-subs // 4) * 4
+    return torch.empty(counters + subs * nf * SLICE_ROWS * SLICE_COLS,
+                       dtype=torch.int32, device=dev)
 
 
 def _entries(states, params, bids, th, wt, alive):
@@ -606,29 +700,34 @@ def rot_walk(kind: str, params: torch.Tensor, bids: torch.Tensor, th: int,
 
 
 def gauss_walk(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
-               shape, geom: GaussGeom) -> tuple:
-    """(entries, factors, peak x runs, work items) of a K2 chunk over
-    state fields of `shape` (H_pad, W_pad): the live entries of its runs
-    (r >= 0), halo copies included; the factors they need: in each 8 x
-    128 slice of its tile that its window (gauss_windows) meets, a wx for
-    each of the window's columns in the slice and a wy for each of its
-    rows in the slice; its longest tile run in live entries times its runs
-    that hold a live entry (_peak_x_runs); and the items of its work list
-    (gauss_work), its runs on the grid times the slices of a tile: the
-    CTAs that walk. K2's walk with factor tables (narrow windows) forms
-    each factor once; its other walk forms wx in each warp block a window
-    meets. On a 128-wide tile that is, for every 8-row slice the window
-    meets, its columns in the tile plus its rows in the slice. Each CTA
-    scans its tile's whole run, so the longest run bounds the kernel's
-    length. Reads the device once."""
+               shape, geom: GaussGeom, work: torch.Tensor | None = None
+               ) -> tuple:
+    """(entries, factors, peak x runs, work items, split subs) of a K2
+    chunk over state fields of `shape` (H_pad, W_pad): the live entries of
+    its runs (r >= 0), halo copies included; the factors they need: in
+    each 8 x 128 slice of its tile that its window (gauss_windows) meets,
+    a wx for each of the window's columns in the slice and a wy for each
+    of its rows in the slice; its longest tile run in live entries times
+    its runs that hold a live entry (_peak_x_runs); and of its work list
+    `work` (else gauss_work of the bids), the items times the slices of a
+    tile, the CTAs that walk, and the (sub-chunk, slice) sums its cut
+    runs' tail segments walk into scratch rather than the state. K2's walk
+    with factor tables (narrow windows) forms each factor once; its other
+    walk forms wx in each warp block a window meets. On a 128-wide tile
+    that is, for every 8-row slice the window meets, its columns in the
+    tile plus its rows in the slice. Each CTA scans its item's sub-chunks
+    whole, so the longest item bounds the kernel's length. Reads the
+    device once."""
     nb_total = shape[0] // th * (shape[1] // wt)
     slices = th // SLICE_ROWS * (wt // SLICE_COLS)
 
     def runs(live):
-        items = (gauss_work(bids, nb_total) >= 0).sum() * slices
-        return torch.cat([_peak_x_runs(live, bids), items.view(1)])
+        w = gauss_work(bids, nb_total) if work is None else work
+        items = (w[:, 0] >= 0).sum() * slices
+        return torch.cat([_peak_x_runs(live, bids), items.view(1),
+                          (_tail_subs(w) * slices).view(1)])
 
-    def work(p, run, row0, col0):
+    def work_of(p, run, row0, col0):
         alive = run & (p[:, 6] >= 0)
         clo, chi, rlo, rhi = gauss_windows(p[:, 0], p[:, 1], p[:, 6], geom)
         xlo = torch.maximum(clo, col0)
@@ -641,7 +740,7 @@ def gauss_walk(params: torch.Tensor, bids: torch.Tensor, th: int, wt: int,
         nrs = (yhi - row0) // SLICE_ROWS - (ylo - row0) // SLICE_ROWS + 1
         factors = nrs * (xhi - xlo + 1) + ncs * (yhi - ylo + 1)
         return alive, torch.where(met, factors, 0)
-    return _walk_totals(params, bids, th, wt, shape, work, runs)
+    return _walk_totals(params, bids, th, wt, shape, work_of, runs)
 
 
 def rot_splat_dense_plain(states, params: torch.Tensor, bids: torch.Tensor,

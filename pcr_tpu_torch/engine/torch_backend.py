@@ -74,8 +74,10 @@ the arena's wait for a buffer included, through device_prep.sync.
 in OutOfCoreTorchEngine.stats.) `commit` adds a K4 / K5 chunk's counters
 "rot_entries" and "rot_window_cells" (gauss_kernels.rot_walk), a K2
 chunk's "gauss_entries", "gauss_factor_cells", "gauss_peak_x_runs" (its
-longest tile run times its runs) and "gauss_work_items" (its work list's
-runs times slices: the CTAs that walk; gauss_kernels.gauss_walk)
+longest tile run times its runs), "gauss_work_items" (its work list's
+items, whole runs and segments of cut ones, times slices: the CTAs that
+walk) and "gauss_split_subs" (the (sub-chunk, slice) sums its cut runs
+walk into scratch rather than the state; gauss_kernels.gauss_walk)
 and a K3 chunk's "rect_entries", "rect_hits" and "rect_staged"
 (line_kernels.rect_walk), which the chunk's layout counted where a profiler
 recorded or the chunk was being staged (`staging`): a commit reads nothing
@@ -150,12 +152,17 @@ class StagedChunk:
     `ready` is the event of the upload the tensors came from (None on the
     CPU): `commit` makes its stream wait on it. `walk` is a K4 / K5
     chunk's (entries, window cells), a K2 chunk's (entries, factors, peak
-    x runs, work items) or a K3 chunk's (entries, row hits, staged slots),
-    where its layout counted them (TorchEngine._counted). `rmax` is a K2
-    chunk's largest radius, which picks the kernel's walk, and `work` its
-    work list (gauss_kernels.gauss_work), built with the layout, which
-    orders the kernel's CTAs: `splat_fns` hands the kernel the chunk, and
-    the kernel takes the list where it is given the chunk's own bids."""
+    x runs, work items, split subs) or a K3 chunk's (entries, row hits,
+    staged slots), where its layout counted them (TorchEngine._counted).
+    `rmax` is a K2 chunk's largest radius, which picks the kernel's walk,
+    and `work` its work list (gauss_kernels.gauss_work), built with the
+    layout, which orders and cuts the kernel's CTAs: `splat_fns` hands the
+    kernel the chunk, and the kernel takes the list where it is given the
+    chunk's own bids. The list cuts runs only where `stage` laid the chunk
+    out for the walk with factor tables (_k2_work), and `split_subs` is
+    then the scratch its cut runs take, in (sub-chunk, slice) sums, which
+    the layout counted; a commit takes that much from torch's caching
+    allocator, and writes nothing on the chunk."""
     kind: str
     params: torch.Tensor
     bids: torch.Tensor | None
@@ -167,15 +174,28 @@ class StagedChunk:
     walk: tuple | None = None
     rmax: int = -1
     work: torch.Tensor | None = None
+    split_subs: int = 0
 
 
 _STAGING = contextvars.ContextVar("pcr_tpu_torch_staging", default=False)
 # the counters a commit adds from a chunk's `walk`, by kind
 _WALK_COUNTERS = {"gauss": ("gauss_entries", "gauss_factor_cells",
-                             "gauss_peak_x_runs", "gauss_work_items"),
+                             "gauss_peak_x_runs", "gauss_work_items",
+                             "gauss_split_subs"),
                   "rect": ("rect_entries", "rect_hits", "rect_staged"),
                   "rot": ("rot_entries", "rot_window_cells"),
                   "rotp": ("rot_entries", "rot_window_cells")}
+
+
+def _k2_work(bids: torch.Tensor, nb_total: int, rmax: int) -> torch.Tensor:
+    """A K2 chunk's work list, built with its layout: its long runs cut
+    where `stage` lays it out for K2's walk with factor tables (rmax up to
+    gauss_kernels.GAUSS_TABLE_RADIUS; its walk count then gives the
+    scratch the cut needs), else every run whole. The wide walk's time is
+    its work, not its longest run: a cut there only adds the fold."""
+    split = (_STAGING.get()
+             and 0 <= rmax <= gauss_kernels.GAUSS_TABLE_RADIUS)
+    return gauss_kernels.gauss_work(bids, nb_total, None if split else 0)
 
 
 @contextlib.contextmanager
@@ -939,7 +959,7 @@ class TorchEngine:
                                                  fills, idx)
         work = None
         if plan.kind == "gauss":
-            work = gauss_kernels.gauss_work(bids, nrb * ncb)
+            work = _k2_work(bids, nrb * ncb, plan.rmax)
         else:
             params = params.view(torch.float32)
         return self._counted(StagedChunk(plan.kind, params, bids, m, plan.th,
@@ -950,14 +970,15 @@ class TorchEngine:
         """`chunk`, a K2 / K3 / K4 / K5 one with its walk counted
         (gauss_kernels.gauss_walk / rot_walk, line_kernels.rect_walk; one
         device read) where a profiler records or the chunk is being staged:
-        the counters commit adds."""
+        the counters commit adds, and a K2 chunk's scratch."""
         if not (profiling.recording() or _STAGING.get()):
             return chunk
         shape = (self.H_pad, self.W_state)
         if chunk.kind == "gauss":
             chunk.walk = gauss_kernels.gauss_walk(
                 chunk.params, chunk.bids, chunk.th, chunk.wt, shape,
-                self.geom)
+                self.geom, chunk.work)
+            chunk.split_subs = chunk.walk[4]
         elif chunk.kind in ("rot", "rotp"):
             chunk.walk = gauss_kernels.rot_walk(
                 chunk.kind, chunk.params, chunk.bids, chunk.th, chunk.wt,
@@ -1000,7 +1021,7 @@ class TorchEngine:
                                     th, wt, cut=plan.cut, dtype=dtype,
                                     rmax=plan.rmax)
         if plan.kind == "gauss":
-            chunk.work = gauss_kernels.gauss_work(chunk.bids, nrb * ncb)
+            chunk.work = _k2_work(chunk.bids, nrb * ncb, plan.rmax)
         return self._counted(chunk)
 
     def _prepare_rotp(self, gp, valid, r, f0, n):

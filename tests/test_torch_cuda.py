@@ -572,19 +572,12 @@ def test_walk_kernels_on_wide_tiles(card, glyph):
         torch.testing.assert_close(g, r, atol=rtol, rtol=rtol)
 
 
-@pytest.mark.parametrize("sigma,n", [(3.0, 400_000), (16.0, 150_000)],
-                         ids=["table", "wide"])
-def test_k2_keeps_its_bits_under_any_order_of_its_work_list(card, sigma, n):
-    """K2 on the skewed tile runs of clustered LiDAR (the benchmark's
-    lidar_tiles at skew 0.5 on 1024 x 1024 in 256-cell tiles, cut into
-    three chunks), by both walks (sigma 3: the factor tables; sigma 16:
-    wx in the walk): the state is bit-identical under the chunk's
-    longest-first list, that list reversed and tile order, and within
-    gauss_rtol of the plain version, cell by cell for the terms a cell can
-    add. The card builds the list the CPU builds from the same bids."""
+def lidar_k2_chunks(card, sigma, n):
+    """The benchmark's lidar_tiles at skew 0.5 on 1024 x 1024 in 256-cell
+    tiles, n points staged for a Gaussian WeightedAverage at `sigma` in
+    three chunks: (engine, chunks, points, grid config)."""
     from cardbench.clouds import lidar_tiles
     from cardbench.grid import Grid
-    from pcr_tpu_torch.engine import routing
     size, tile = 1024, 256
     gc = make_grid_config(w=float(size), h=float(size), tile=tile)
     pts = lidar_tiles.generate({"count": n, "tiles": 49, "skew": 0.5},
@@ -601,8 +594,29 @@ def test_k2_keeps_its_bits_under_any_order_of_its_work_list(card, sigma, n):
     c.add_channel("z", pcr.DataType.Float32)
     c.set_channel_array_f32("z", pts.value)
     chunks = p.stage(c).per_spec[0]
-    eng = p._engine
     assert len(chunks) == 3
+    return p._engine, chunks, pts, gc
+
+
+def in_tile_order(work):
+    """A work list's used rows by first sub-chunk, then its unused ones."""
+    used = int((work[:, 0] >= 0).sum())
+    head = work[:used]
+    return torch.cat([head[torch.argsort(head[:, 0])], work[used:]])
+
+
+@pytest.mark.parametrize("sigma,n", [(3.0, 400_000), (16.0, 150_000)],
+                         ids=["table", "wide"])
+def test_k2_keeps_its_bits_under_any_order_of_its_work_list(card, sigma, n):
+    """K2 on the skewed tile runs of clustered LiDAR (lidar_k2_chunks), by
+    both walks (sigma 3: the factor tables; sigma 16: wx in the walk): the
+    state is bit-identical under the chunk's longest-first list, that list
+    reversed and tile order, and within gauss_rtol of the plain version,
+    cell by cell for the terms a cell can add. The card builds the list
+    the CPU builds from the same bids."""
+    from pcr_tpu_torch.engine import routing
+    size = 1024
+    eng, chunks, pts, gc = lidar_k2_chunks(card, sigma, n)
     r = int(np.ceil(3 * sigma))
     # the terms a cell can add: the points within r cells on both axes
     col, row, ok = routing.assign(gc, pts.x, pts.y)
@@ -619,11 +633,9 @@ def test_k2_keeps_its_bits_under_any_order_of_its_work_list(card, sigma, n):
         nb = eng.H_pad // chunk.th * (eng.W_state // chunk.wt)
         assert torch.equal(chunk.work.cpu(),
                            gk.gauss_work(chunk.bids.cpu(), nb))
-        runs = int((chunk.work >= 0).sum())
         orders = {"longest": chunk.work,
                   "reversed": torch.flip(chunk.work, [0]).contiguous(),
-                  "tile": torch.cat([torch.sort(chunk.work[:runs]).values,
-                                     chunk.work[runs:]])}
+                  "tile": in_tile_order(chunk.work)}
         got = {}
         for name, work in orders.items():
             st = [torch.zeros_like(s) for s in eng._states[0]]
@@ -647,6 +659,108 @@ def test_k2_keeps_its_bits_under_any_order_of_its_work_list(card, sigma, n):
                 [len(chunk.bids)], device=card))
         skews.append(int(lengths.max()) / float(lengths.float().mean()))
     assert min(skews) > 2                  # the downtown tiles' long runs
+
+
+@pytest.mark.parametrize("nf", [1, 2])
+@pytest.mark.parametrize("sigma,n", [(3.0, 400_000), (16.0, 150_000)],
+                         ids=["table", "wide"])
+def test_k2_cuts_long_runs_with_the_bits_of_whole_runs(card, sigma, n, nf,
+                                                       monkeypatch):
+    """K2 on the skewed runs of lidar_k2_chunks, by both walks, on one
+    field and two, with the product cutoff off and on, from a carried
+    state that is not zero (so each sum's order into a cell shows): the
+    chunk's own list gives the bits of the list with every run whole; so
+    do that list reversed and in tile order, and two launches in a row
+    (the counters zeroed each time). The walk with factor tables (sigma
+    3) takes cut lists: the chunk's own, which cuts its long runs, the
+    finest cut (the bound at one sub-chunk: every run of two or more cut;
+    the chunks' own bound, a few times the mean run, may cut none of
+    these runs, 2-5 times the mean) and a budget that leaves some long
+    runs whole. The wide walk (sigma 16) is staged with every run whole
+    and refuses scratch, so a cut list never reaches it. Building a list
+    on the card and a launch of the staged chunk, or of one with the finer
+    cut, never synchronise."""
+    eng, chunks, _, _ = lidar_k2_chunks(card, sigma, n)
+    table = sigma == 3.0
+    gen = torch.Generator(device=card).manual_seed(5)
+    for chunk in chunks:
+        kern, _, kw = eng.splat_fns(chunk)
+        nb = eng.H_pad // chunk.th * (eng.W_state // chunk.wt)
+        slices = chunk.th // 8 * (chunk.wt // 128)
+        fields = eng._states[0][:nf]
+        carried = [torch.rand(f.shape, generator=gen, device=card) * 100.0
+                   for f in fields]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mine = gk.gauss_work(chunk.bids, nb, None if table else 0)
+            with monkeypatch.context() as mp:
+                mp.setattr(gk, "SPLIT_FLOOR", 1)
+                mp.setattr(gk, "SPLIT_MULT", 0)
+                fine = gk.gauss_work(chunk.bids, nb)
+            staged = [c.clone() for c in carried]
+            kern(staged, chunk.params, chunk.bids, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(mine, chunk.work)
+        fine_subs = int(gk._tail_subs(fine))
+        one = dataclasses.replace(chunk, work=fine,
+                                  split_subs=fine_subs * slices)
+        assert (fine[:, 2] >= 0).any()
+        plans = {
+            "whole": (gk.gauss_work(chunk.bids, nb, 0), 0),
+            "own": (chunk.work, chunk.split_subs),
+            "reversed": (torch.flip(chunk.work, [0]).contiguous(),
+                         chunk.split_subs),
+            "tile": (in_tile_order(chunk.work), chunk.split_subs)}
+        assert int(gk._tail_subs(plans["whole"][0])) == 0
+        staged_fine = None
+        if not table:
+            assert chunk.split_subs == 0 and (chunk.work[:, 2] < 0).all()
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kern([c.clone() for c in carried], chunk.params, chunk.bids,
+                     **dict(kw, chunk=one))
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                staged_fine = [c.clone() for c in carried]
+                kern(staged_fine, chunk.params, chunk.bids,
+                     **dict(kw, chunk=one))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            # room for the longest cut run's tails alone
+            bases = sorted(set(fine[fine[:, 2] >= 0, 3].tolist()))
+            with monkeypatch.context() as mp:
+                mp.setattr(gk, "SPLIT_FLOOR", 1)
+                mp.setattr(gk, "SPLIT_MULT", 0)
+                small = gk.gauss_work(chunk.bids, nb, bases[1])
+            assert (small[:, 2] >= 0).any()
+            assert ((small[:, 2] < 0) & (small[:, 1] - small[:, 0] > 1)).any()
+            plans["fine"] = (fine, fine_subs * slices)
+            plans["small"] = (small, int(gk._tail_subs(small)) * slices)
+        for cut in (False, True):
+            got = {}
+            for name, (work, subs) in plans.items():
+                one = dataclasses.replace(chunk, work=work, split_subs=subs)
+                st = [c.clone() for c in carried]
+                kern(st, chunk.params, chunk.bids,
+                     **dict(kw, cut=cut, chunk=one))
+                got[name] = [s.clone().view(torch.int32) for s in st]
+                if name in ("whole", "own"):
+                    kern(st, chunk.params, chunk.bids,
+                         **dict(kw, cut=cut, chunk=one))
+                    got[name + "2"] = [s.clone().view(torch.int32)
+                                       for s in st]
+            torch.cuda.synchronize()
+            for name, bits in got.items():
+                want = got["whole2" if name.endswith("2") else "whole"]
+                assert all(torch.equal(a, b) for a, b in zip(want, bits)), \
+                    (name, cut)
+            assert not torch.equal(got["whole"][0], got["whole2"][0])
+            if cut == kw["cut"]:       # the launches under the sync check
+                for launched in (staged, staged_fine):
+                    assert launched is None or all(
+                        torch.equal(a.view(torch.int32), b)
+                        for a, b in zip(launched, got["whole"]))
 
 
 def test_walk_kernels_refuse_unaligned_params(card):

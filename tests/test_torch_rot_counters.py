@@ -1,7 +1,7 @@
 """The port's walk counters on its device path on torch-CPU
 (PCR_TORCH_DEVICE=cpu): K4 / K5's `rot_entries` / `rot_window_cells` and
 K2's `gauss_entries` / `gauss_factor_cells` / `gauss_peak_x_runs` /
-`gauss_work_items`.
+`gauss_work_items` / `gauss_split_subs`.
 
 Under a profiler a commit of a rotated chunk adds its live entries (halo
 copies included) and the cells of their windows cut to their tiles: K4's
@@ -13,9 +13,12 @@ each of the window's columns there and a wy for each of its rows
 the slices), and its longest tile run in live entries times the runs that
 hold one (`gauss_peak_x_runs`, held against a count of each bid's live
 entries: its ratio to the entries is 1 where every run is as long, and
-grows with a clustered cloud's hot tiles), and the items of its work list,
-its runs on the grid times a tile's slices (`gauss_work_items`: the CTAs
-that walk). `stage` counts them when it lays the chunks out, so an
+grows with a clustered cloud's hot tiles), the items of its work list,
+its runs on the grid and the segments of those it cuts, times a tile's
+slices (`gauss_work_items`: the CTAs that walk), and the (sub-chunk,
+slice) sums its cut runs walk into scratch (`gauss_split_subs`, held
+against the plan built by hand in tests/test_torch_gauss_work.py).
+`stage` counts them when it lays the chunks out, so an
 ingest of a staged cloud reads nothing of the device for them; a
 host-sourced ingest counts them only while a profiler records. Staged and
 host-sourced ingests of one cloud count alike, by either layout route. A
@@ -30,6 +33,7 @@ import pcr_tpu_torch as pcr
 from pcr_tpu_torch.engine import gauss_kernels
 from pcr_tpu_torch.engine.torch_backend import _WALK_COUNTERS
 from pcr_tpu_torch.utils import profiling
+from test_torch_gauss_work import plan_by_hand
 
 # the first multi-threaded float32 exp of a process can read up to 1e-4
 # off every later call (tests/test_torch_pipeline.py); spend it here
@@ -132,12 +136,14 @@ def by_hand(engine, chunk):
 
 
 def gauss_by_hand(engine, params, bids, th, wt):
-    """(entries, factors, peak x runs, work items) of a K2 chunk, entry by
-    entry and slice by slice: a live entry (r >= 0) in a run of a tile of
-    the state, and in every 8 x 128 slice of that tile where its window
-    keeps a row and a column, a factor for each of them; the most live
-    entries of one bid times the bids that hold any; the bids on the state
-    times the slices of a tile."""
+    """(entries, factors, peak x runs, work items, split subs) of a K2
+    chunk, entry by entry and slice by slice: a live entry (r >= 0) in a
+    run of a tile of the state, and in every 8 x 128 slice of that tile
+    where its window keeps a row and a column, a factor for each of them;
+    the most live entries of one bid times the bids that hold any; the
+    items of the plan by hand (a run on the state, or a segment of one)
+    and the sub-chunks of its tail segments, each times the slices of a
+    tile."""
     ncb = engine.W_state // wt
     nb = engine.H_pad // th * ncb
     p = params.numpy()
@@ -161,9 +167,11 @@ def gauss_by_hand(engine, params, bids, th, wt):
                     cols = len(range(max(clo, x0), min(chi, x0 + 127) + 1))
                     if rows and cols:
                         factors += rows + cols
-    on = {b for b in bids.tolist() if 0 <= b < nb}
+    slices = (th // 8) * (wt // 128)
+    items = [r for r in plan_by_hand(bids.tolist(), nb) if r[0] >= 0]
+    split = sum(e - f for f, e, t, _ in items if 0 <= t <= f)
     return (entries, factors, max(per_bid.values(), default=0) * len(per_bid),
-            len(on) * (th // 8) * (wt // 128))
+            len(items) * slices, split * slices)
 
 
 @pytest.mark.parametrize("kind", sorted(KERNELS))
@@ -322,7 +330,7 @@ def test_gauss_peak_x_runs_is_the_longest_run_times_the_runs(skew):
     staged = p.stage(make())
     (chunk,) = staged.per_spec[0]
     assert chunk.kind == "gauss" and chunk.th == 32 and chunk.wt == 128
-    entries, _, peak_x_runs, _ = chunk.walk
+    entries, _, peak_x_runs, _, _ = chunk.walk
     assert peak_x_runs == runs_by_hand(p._engine, chunk)
     if skew == "even":
         assert entries == 200 and peak_x_runs == entries
@@ -346,13 +354,38 @@ def test_gauss_work_items_are_the_runs_times_the_slices(skew):
     nb = eng.H_pad // chunk.th * (eng.W_state // chunk.wt)
     runs = len({b for b in chunk.bids.tolist() if 0 <= b < nb})
     items = chunk.walk[3]
-    assert items == runs * 4 == int((chunk.work >= 0).sum()) * 4
+    assert items == runs * 4 == int((chunk.work[:, 0] >= 0).sum()) * 4
+    assert chunk.walk[4] == chunk.split_subs == 0       # no run is cut
     if skew == "even":
         assert runs == 4
     else:
         assert items < chunk.params.shape[0] * 4      # the hot tile's run
     profiled(p.ingest, staged)
     assert counters("gauss")[3] == items
+
+
+@pytest.mark.parametrize("skew", list(SKEWS))
+def test_gauss_split_subs_are_the_sums_a_cut_walks_into_scratch(skew):
+    """Even runs are not cut: no scratch. A hot tile's run of some twenty
+    sub-chunks among runs of one is: its tail segments' sub-chunks times
+    the four slices, which the chunk's launch takes as its scratch, and
+    each of its segments is an item; a commit adds both."""
+    make, size, tile = SKEWS[skew]
+    p = pipeline(SKEW_SIGMA, tile, size)
+    staged = p.stage(make() if skew == "even" else make(hot=40000))
+    (chunk,) = staged.per_spec[0]
+    eng = p._engine
+    nb = eng.H_pad // chunk.th * (eng.W_state // chunk.wt)
+    items = [r for r in plan_by_hand(chunk.bids.tolist(), nb) if r[0] >= 0]
+    tails = sum(e - f for f, e, t, _ in items if 0 <= t <= f)
+    assert chunk.walk[3:] == (len(items) * 4, tails * 4)
+    assert chunk.split_subs == tails * 4
+    if skew == "even":
+        assert tails == 0
+    else:
+        assert tails > 8 and len(items) > len(set(chunk.bids.tolist()))
+    profiled(p.ingest, staged)
+    assert counters("gauss")[3:] == chunk.walk[3:]
 
 
 @pytest.mark.parametrize("route", ["device", "host"])
